@@ -1,7 +1,7 @@
-"""garden-tpu: a TPU-native game/simulation engine.
+"""garden-tpu: a JAX-native game/simulation engine for one or more GPUs.
 
 A from-scratch rebuild of the capabilities of the Garden C++/Vulkan engine
-(reference: cfnptr/garden) designed TPU-first:
+(reference: cfnptr/garden) designed accelerator-first:
 
 - ECS component stores are fixed-capacity structure-of-arrays device buffers
   (reference: ecsm LinearPool, see SURVEY.md section 2.1).
@@ -12,8 +12,8 @@ A from-scratch rebuild of the capabilities of the Garden C++/Vulkan engine
   rasterization to a visibility buffer, deferred G-buffer shading, PBR
   lighting, CSM, HBAO, bloom, auto-exposure, tone mapping, FXAA, atmosphere
   (reference: source/system/render/*).
-- The whole frame is one jitted step function; worlds batch across chips over
-  ICI via jax.sharding (reference has no multi-device analog).
+- The whole frame is one jitted step function; worlds batch across devices
+  via shard_map (reference has no multi-device analog).
 """
 
 __version__ = "0.1.0"

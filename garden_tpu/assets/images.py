@@ -3,7 +3,7 @@
 Rebuild of ResourceSystem's image loaders (reference:
 source/system/resource.cpp image loading paths; supported formats at
 include/garden/system/resource.hpp:136-151 — png/webp/exr/hdr + Basis).
-TPU mapping: images decode on the host (PIL for png/webp/jpeg/bmp, a tiny
+Device mapping: images decode on the host (PIL for png/webp/jpeg/bmp, a tiny
 native reader for Radiance .hdr) into float32 numpy arrays that upload into
 the scene's texture array / sprite atlas. Basis/KTX GPU-codec formats are
 n/a (XLA owns device memory layout).

@@ -10,7 +10,7 @@ mode while loose files serve "debug" mode (resource.hpp:183-189); the
 FileWatcherSystem can hot-reload a resource by re-queuing its loader
 (resource.hpp:203 fileChange).
 
-TPU note: decode is host work (PIL/parsers); device upload happens on the
+Device note: decode is host work (PIL/parsers); device upload happens on the
 consumer side (SceneBuffers.add_texture / add_instance) at drain time, so
 the jitted frame never blocks on IO.
 """

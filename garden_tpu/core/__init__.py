@@ -1,5 +1,5 @@
 """Core substrate: math, ECS stores, event schedule, config, logging.
 
-TPU-native replacement for the reference's layer 0/1 (ecsm + cfnptr/math +
+Data-parallel replacement for the reference's layer 0/1 (ecsm + cfnptr/math +
 core utilities, SURVEY.md sections 2.1-2.2).
 """

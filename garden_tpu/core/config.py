@@ -66,24 +66,16 @@ class ShadowConfig:
     bias_normal: float = 0.05
     pcf_radius: int = 1
     # cascade-atlas raster tile height (None = square 128): short-wide
-    # tiles waste fewer VPU lanes on small far-cascade casters (see
-    # raster.tpu_tile_legal); multiple of 8
+    # tiles fit small far-cascade casters; a power of two (see
+    # raster.tile_layout_ok)
     atlas_tile_h: Optional[int] = None
     # atlas binning y-footprint in tiles (None = auto: keep ~256px span).
     # Scenes whose casters concentrate in FAR cascades (small light-space
     # triangles) can use 2 — triangles taller than foot_y*atlas_tile_h px
     # ride the shared big list (raster.bin_triangles)
     atlas_foot_y: Optional[int] = None
-    # SPLIT raster path for the cascade atlas (raster.rasterize_depth):
-    # grid lists raster over a compacted 1D grid of the max_active_tiles
-    # most-populated atlas tiles (the flagship atlas occupies 252 of 3072),
-    # and big casters ride per-SUPER-tile lists instead of one global list
-    # every tile draws. None = dense path (every tile fetches its record
-    # block; always correct). Tiles past max_active_tiles lose their grid
-    # list, least-populated first — size it ~3x the expected occupancy.
-    max_active_tiles: Optional[int] = None
     # shadow-factor resolve decimation: the per-pixel shadow-map lookup is a
-    # random gather (~30ns/element on TPU); resolving every Nth pixel and
+    # random gather; resolving every Nth pixel and
     # bilinearly upsampling the factor costs ~1px of edge softness that the
     # PCF smoothing blurs anyway. 1 = full-resolution resolve (the
     # reference-parity default); must be a power of two (each halving is one
@@ -136,11 +128,10 @@ class RenderConfig:
 
     width: int = 1920
     height: int = 1080
-    tile_size: int = 128                # raster tile WIDTH; TPU Pallas needs 128-lane alignment
-    # raster tile HEIGHT (None = square). Short-wide tiles waste far fewer
-    # VPU lanes on small triangles (a ~20px triangle covers <3% of a
-    # 128x128 tile's lanes but 4x that at 32x128); must be a multiple of 8
-    # sublanes (raster.tpu_tile_legal)
+    tile_size: int = 128                # raster tile WIDTH; a power of two
+    # raster tile HEIGHT (None = square). Short-wide tiles suit small
+    # triangles (a ~20px triangle covers <3% of a 128x128 tile but 4x that
+    # of a 32x128 one); a power of two (raster.tile_layout_ok)
     tile_h: Optional[int] = None
     # main-pass binning y-footprint in tiles (None = auto: keep ~256px
     # span). Scenes of small on-screen triangles can use 2 — pair

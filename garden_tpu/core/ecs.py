@@ -1,6 +1,6 @@
 """Entity-Component-System over structure-of-arrays device buffers.
 
-TPU-native rebuild of the reference's ECS runtime (the `ecsm` library:
+Data-parallel rebuild of the reference's ECS runtime (the `ecsm` library:
 Manager / System / ComponentSystem / LinearPool, see docs/ECS/*.md in the
 reference and SURVEY.md section 2.1).
 

@@ -1,10 +1,10 @@
 """Batched 3D math: quaternions, matrices, AABBs, frustums.
 
-TPU-native equivalent of the reference's SIMD math library (cfnptr/math:
+Accelerator equivalent of the reference's SIMD math library (cfnptr/math:
 f32x4, f32x4x4, quat, Aabb, Frustum — used throughout e.g.
 include/garden/system/render/mesh.hpp:22). Everything here is plain jnp over
 a trailing component axis so it vmaps/batches freely; there are no scalar
-fast paths — batch is the fast path on TPU.
+fast paths — batch is the fast path on the accelerator.
 
 Conventions:
 - Quaternions are (x, y, z, w), Hamilton product, unit-normalized.
@@ -29,9 +29,9 @@ import numpy as np
 # ---------------------------------------------------------------------------
 
 
-# Explicit f32 precision for small-matrix ops: TPU matmul defaults to
-# bfloat16 inputs, which is far too coarse for transform chains and
-# physics. HIGHEST forces full float32 accumulation.
+# Explicit f32 precision for small-matrix ops: a float32 matmul on the GPU
+# may run in TF32 (~3 decimal digits) by default, which is far too coarse
+# for transform chains and physics. HIGHEST forces full float32.
 HIGHEST = jax.lax.Precision.HIGHEST
 
 
@@ -73,11 +73,10 @@ def reflect(v: jnp.ndarray, n: jnp.ndarray) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Dense one-hot selects: TPU random gathers run at ~5 GB/s effective while
-# dense VPU/MXU ops run 20-40x faster, so for SMALL k a masked reduction
-# beats take_along_axis by an order of magnitude (measured: selecting 1-of-3
-# components per element via gather cost 31ms at 245K rows; the dense form
-# is sub-millisecond). Used throughout the physics narrowphase/solver.
+# Dense one-hot selects over a SMALL trailing k, used throughout the physics
+# narrowphase/solver: a masked reduction or one-hot contraction instead of
+# take_along_axis. Contractions run at HIGHEST precision so values pass
+# through exactly (no TF32 rounding), and an index outside [0, k) selects 0.
 # ---------------------------------------------------------------------------
 
 
@@ -93,25 +92,25 @@ def select_scalar(x: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
 
 def select_row(x: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     """x[..., idx, :] for small k: (..., k, d), (...,) -> (..., d)."""
-    return jnp.einsum("...k,...kd->...d", onehot(idx, x.shape[-2]), x)
+    return einsum("...k,...kd->...d", onehot(idx, x.shape[-2]), x)
 
 
 def gather_rows(x: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     """x[..., idx, :] batched for small source k: (..., k, d), (..., s) ->
     (..., s, d) as a dense one-hot contraction."""
-    return jnp.einsum("...sk,...kd->...sd", onehot(idx, x.shape[-2]), x)
+    return einsum("...sk,...kd->...sd", onehot(idx, x.shape[-2]), x)
 
 
 def gather_scalars(x: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     """x[..., idx] batched for small source k: (..., k), (..., s) ->
     (..., s) as a dense one-hot contraction."""
-    return jnp.einsum("...sk,...k->...s", onehot(idx, x.shape[-1]), x)
+    return einsum("...sk,...k->...s", onehot(idx, x.shape[-1]), x)
 
 
 def scatter_rows_add(values: jnp.ndarray, idx: jnp.ndarray, k: int) -> jnp.ndarray:
     """Inverse of gather_scalars: place (..., s) values at positions
     (..., s) in a zeroed (..., k) row (dense one-hot transpose)."""
-    return jnp.einsum("...sk,...s->...k", onehot(idx, k), values)
+    return einsum("...sk,...s->...k", onehot(idx, k), values)
 
 
 # ---------------------------------------------------------------------------
@@ -256,8 +255,7 @@ def apply_mat4(m: jnp.ndarray, p: jnp.ndarray, w: float = 1.0) -> jnp.ndarray:
 
     Single-matrix calls unroll to a per-column fma chain: the einsum form
     lowers to a dot_general that forces component-minor layouts on the
-    (big-batch) point arrays plus layout copies (measured ~1 ms/frame each
-    for the clip and light-space transforms at 3x123K vertices)."""
+    (big-batch) point arrays plus layout copies."""
     if m.ndim == 2:
         x, y, z = p[..., 0], p[..., 1], p[..., 2]
         return jnp.stack(
@@ -396,7 +394,7 @@ def aabb_outside_frustum(planes: jnp.ndarray, aabb_min: jnp.ndarray, aabb_max: j
 
     Batched over leading axes of aabb_min/max; planes is (6, 4). The
     positive-vertex test: pick the AABB corner farthest along the plane
-    normal; if even it is behind the plane, the box is out. (TPU analog of
+    normal; if even it is behind the plane, the box is out. (Batched analog of
     math::isBehindFrustum used by mesh culling, mesh.cpp:444-509.)
     """
     center = 0.5 * (aabb_min + aabb_max)

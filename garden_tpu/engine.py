@@ -6,7 +6,7 @@ Input -> Update -> Output event chain (docs/ECS/Systems.md), and the
 headless LoopSystem tick loop with delta-time tracking and max tick rate
 (include/garden/system/loop.hpp:57, source/system/loop.cpp:53-96).
 
-TPU mapping: every event subscriber is a pure `(state, ctx) -> state`
+Device mapping: every event subscriber is a pure `(state, ctx) -> state`
 function, so running Input/Update/Output in order inside `jax.jit` yields a
 single compiled step for the whole frame. The host loop only feeds wall-time
 deltas and (optionally) sleeps to the tick-rate cap; signal handlers stop the

@@ -85,7 +85,7 @@ def downsample2x(img: Array) -> Array:
 
 def decimate2x(img: Array) -> Array:
     """2x mean-pool decimation via reduce_window. A strided slice
-    (`x[::2, ::2]`) lowers to a ~3 GB/s gather on TPU, and a single 5-D
+    (`x[::2, ::2]`) can lower to a gather, and a single 5-D
     reshape+reduce forces layout copies; native window reduction does
     neither and antialiases as a bonus."""
     import jax

@@ -3,10 +3,10 @@
 Rebuild of the FastNoise2 integration (re-exported at
 include/garden/noise.hpp:20 for application worldgen; also the prebaked 3D
 noise textures the volumetric clouds use, source/system/render/clouds.cpp:
-117-269). FastNoise2 is a SIMD node-graph noise library; the TPU-native
-equivalent is a set of vectorized jnp kernels — hash-based gradient noise
-(no permutation tables: an integer avalanche hash computes gradients on the
-fly, which vectorizes perfectly on the VPU) plus fBm / ridged / turbulence
+117-269). FastNoise2 is a SIMD node-graph noise library; the equivalent
+here is a set of vectorized jnp kernels — hash-based gradient noise (no
+permutation tables: an integer avalanche hash computes gradients on the
+fly, which vectorizes perfectly) plus fBm / ridged / turbulence
 fractal combinators and domain warping.
 """
 

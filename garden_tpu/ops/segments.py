@@ -15,11 +15,10 @@ def run_edges(key_sorted: Array, n_probes: int) -> Array:
     two-level count: edges[k] = #(entries < k).
 
     jnp.searchsorted lowers to a while-loop binary search — ~21 serial
-    dispatches of tiny gathers (measured 0.92 ms/frame on the cascade
-    atlas alone, round-5 trace). Here: block maxima of the sorted keys
+    dispatches of tiny gathers. Here: block maxima of the sorted keys
     give each probe its boundary block with ONE dense compare+reduce,
     then one (P, stride) row gather + a second compare+reduce finishes
-    the exact count inside that block — 4 fused VPU ops, no loops.
+    the exact count inside that block — 4 fused ops, no loops.
     Stride ~ sqrt(n) balances the block-maxima compare (P * n/stride)
     against the window fetch (P * stride)."""
     n = key_sorted.shape[0]

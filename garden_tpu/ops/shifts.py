@@ -4,10 +4,9 @@ Every screen-space pass in this engine (HBAO horizon marches, FXAA edge
 end-search, SMAA run lengths, PCF taps, separable blurs, bilateral
 upsamples) reads fixed-offset shifted copies of an image with edge-clamp
 semantics. The naive form — `jnp.pad(x, ..., mode="edge")` per tap — is
-what the reference's texture units do for free, but on TPU each edge-pad
+what the reference's texture units do for free, but here each edge-pad
 lowers to a chain of slice+concatenate HLO ops, and a 40-tap pass turns
-into ~1400 traced primitives (measured with tools/hlo_stats.py); the
-dense-op dispatch tail was ~23 ms of the round-3 frame.
+into ~1400 traced primitives.
 
 `Shifter` pads ONCE to the maximum tap radius and serves every tap as a
 single static slice of the shared padded buffer. Slices fuse into their

@@ -1,9 +1,11 @@
-"""Split-frame rendering: one frame's pixels sharded across chips.
+"""Split-frame rendering: one frame's pixels sharded across devices.
 
-The reference is a single-GPU engine; this is the TPU-native analog of
+The reference is a single-GPU engine; this is the multi-device analog of
 multi-GPU split-frame rendering (SFR): the screen splits into horizontal
-bands, each chip renders its band through an ASYMMETRIC crop of the
-projection matrix, and the image concatenates over ICI. Complements the
+bands, each device renders its band through an ASYMMETRIC crop of the
+projection matrix under shard_map (the raster's Pallas calls are not
+split by XLA's partitioner), and the image concatenates over the mesh.
+Complements the
 many-world data parallelism of `parallel/worlds.py` (SURVEY.md section
 2.11): worlds scale throughput, frame tiles scale a single frame's
 latency.
@@ -20,8 +22,8 @@ Design notes (the SFR trade-offs, stated up front):
   to their miss path at the seam.
 - Auto exposure is temporal: every band tone-maps the CURRENT frame with
   the shared luminance carried in the frame state, and the per-band
-  averages reduce to one global value for the NEXT frame (a cross-chip
-  mean XLA lowers to one psum over ICI) — bands never diverge in
+  averages reduce to one global value for the NEXT frame (a cross-device
+  mean XLA lowers to one all-reduce) — bands never diverge in
   exposure, matching the adaptation semantics of tonemap.adapt_exposure.
 """
 
@@ -53,8 +55,11 @@ def crop_projection(view_proj: Array, y0_ndc: float, y1_ndc: float) -> Array:
 def band_constants(constants: Dict[str, Array], band: int, n_bands: int,
                    overlap_ndc: float) -> Dict[str, Array]:
     """Per-band camera constants: view_proj cropped to the band's rows
-    (plus guard overlap), inv_view_proj re-inverted to match (the shadow
-    cascade fit consumes it)."""
+    (plus guard overlap), inv_view_proj re-inverted to match (position
+    reconstruction and view rays consume it). The shadow cascades keep
+    fitting the FULL frustum (shadow_inv_view_proj), so every band
+    rasterizes the same shadow atlas as the unsplit frame and shadow
+    edges stay continuous across seams."""
     # screen y is top-down, NDC y is bottom-up: band 0 (top rows) is the
     # HIGHEST NDC slice
     y1 = 1.0 - 2.0 * band / n_bands + overlap_ndc
@@ -63,6 +68,8 @@ def band_constants(constants: Dict[str, Array], band: int, n_bands: int,
     out = dict(constants)
     out["view_proj"] = vp
     out["inv_view_proj"] = m3.mat4_inverse(vp)
+    out["shadow_inv_view_proj"] = constants.get(
+        "shadow_inv_view_proj", constants["inv_view_proj"])
     return out
 
 
@@ -92,8 +99,8 @@ class FrameTiles:
             raise ValueError("height must divide into bands")
         th = config.tile_h or config.tile_size
         band_h = config.height // n_bands
-        # guard rows pad to the raster tile height so the band stays
-        # TPU-tile-legal
+        # guard rows pad to whole raster tile rows, so band seams fall on
+        # tile boundaries
         overlap = -(-overlap // th) * th
         self.n_bands = n_bands
         self.overlap = overlap
@@ -125,15 +132,20 @@ class FrameTiles:
                 out = self.renderer.render(scn, mats, c, fstate)
                 return out["image"], out["frame_state"]
 
+            # each device renders its own band(s)
+            local = jax.shard_map(
+                jax.vmap(one_band, in_axes=(0, 0, None, None, None)),
+                mesh=self.mesh,
+                in_specs=(P("bands"), P("bands"), P(), P(), P()),
+                out_specs=(P("bands"), P("bands")), check_vma=False)
+
             def step(scn, mats, consts, fstate):
                 bands = jnp.arange(n, dtype=jnp.int32)
-                imgs, nstate = jax.vmap(
-                    one_band, in_axes=(0, 0, None, None, None)
-                )(bands, fstate, scn, mats, consts)
+                imgs, nstate = local(bands, fstate, scn, mats, consts)
                 # crop guard rows, stitch bands into the full frame
                 image = imgs[:, self.overlap:self.overlap + self.band_h]
                 image = image.reshape(self.full_h, image.shape[2], 3)
-                # one global exposure for the next frame (psum over ICI)
+                # one global exposure for the next frame
                 nstate = dict(
                     nstate,
                     avg_luminance=jnp.broadcast_to(

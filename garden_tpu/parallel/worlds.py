@@ -1,16 +1,20 @@
-"""Many-world simulation batched across chips over ICI.
+"""Many-world simulation batched across devices.
 
 The reference is a single-node, single-GPU engine; its only distribution is
-TCP/UDP game networking (SURVEY.md sections 2.11/5.8). The TPU-native
-scaling axis is a leading world-batch dimension: per-chip batching via vmap,
-cross-chip scaling via jax.sharding over a mesh — steady-state simulation is
-embarrassingly parallel, so collectives only appear in metric reduction
-(psum over worlds) and optional frame gathers.
+TCP/UDP game networking (SURVEY.md sections 2.11/5.8). The scaling axis
+here is a leading world-batch dimension: per-device batching via vmap,
+cross-device scaling via shard_map over a flat mesh (every card reaches
+every other alike) — steady-state simulation is embarrassingly parallel,
+so collectives only appear in metric reduction (a mean over worlds) and
+optional frame gathers. The step runs under shard_map, so each device
+steps only its own worlds: XLA's partitioner cannot split the raster's
+Pallas calls, and would otherwise gather the whole batch onto every
+device.
 
 Usage:
     wb = WorldBatch(step_fn, n_worlds, devices=jax.devices())
     batched = wb.replicate(state)            # or stack different states
-    batched = wb.step(batched)               # jit(vmap(step)) over the mesh
+    batched = wb.step(batched)               # jit(shard_map(vmap(step)))
     stats = wb.reduce(batched, fn)           # cross-world reduction
 """
 
@@ -32,7 +36,7 @@ class WorldBatch:
                  axis_name: str = "worlds"):
         devices = list(devices if devices is not None else jax.devices())
         if n_worlds % len(devices) != 0:
-            # shrink to the largest divisor so each chip gets equal worlds
+            # shrink to the largest divisor so each device gets equal worlds
             while n_worlds % len(devices) != 0:
                 devices.pop()
         self.n_worlds = n_worlds
@@ -41,9 +45,9 @@ class WorldBatch:
         self.sharding = NamedSharding(self.mesh, P(axis_name))
         self.replicated = NamedSharding(self.mesh, P())
         self._step = jax.jit(
-            jax.vmap(step_fn),
-            in_shardings=(self.sharding,),
-            out_shardings=self.sharding,
+            jax.shard_map(jax.vmap(step_fn), mesh=self.mesh,
+                          in_specs=(P(axis_name),), out_specs=P(axis_name),
+                          check_vma=False),
             donate_argnums=0,
         )
 
@@ -74,7 +78,7 @@ class WorldBatch:
         return self._step(batched)
 
     def reduce(self, batched: State, fn: Callable, reducer: str = "mean") -> Any:
-        """Cross-world metric reduction (one all-reduce over ICI)."""
+        """Cross-world metric reduction (one all-reduce over the mesh)."""
         vals = jax.jit(jax.vmap(fn))(batched)
         red = {"mean": jnp.mean, "sum": jnp.sum, "max": jnp.max,
                "min": jnp.min}[reducer]

@@ -1,6 +1,6 @@
 """Rigid-body physics, vectorized over fixed-capacity body/contact arrays.
 
-TPU-native rebuild of the reference's PhysicsSystem-over-Jolt (reference:
+Data-parallel rebuild of the reference's PhysicsSystem-over-Jolt (reference:
 include/garden/system/physics.hpp:667, source/system/physics.cpp:906-1222).
 The Jolt pipeline — broadphase pair sweep, narrowphase contact generation,
 island build + sequential-impulse solve, semi-implicit Euler integration, all
@@ -12,7 +12,7 @@ stages over struct-of-arrays state:
   Jolt's maxBodyPairCount, physics.hpp:680).
 - narrowphase: batched analytic contact kernels (sphere/box/capsule/plane)
   emitting fixed-size manifolds with validity masks.
-- solver: mass-splitting Jacobi impulse iterations (TPU-parallel stand-in
+- solver: mass-splitting Jacobi impulse iterations (data-parallel stand-in
   for sequential impulses; islands are implicit — every contact is solved
   every iteration, masked).
 - integration: semi-implicit Euler + first-order quaternion update.

@@ -4,11 +4,10 @@ Rebuild of Jolt's broadphase pair sweep as invoked by the reference
 (source/system/physics.cpp:1186-1193 steps JPH::PhysicsSystem::Update which
 runs its quad-tree broadphase; capacity contract maxBodyPairCount=65536 at
 include/garden/system/physics.hpp:680). A quad-tree walk is pointer-chasing
-and TPU-hostile; the idiomatic device analog is a uniform grid.
+and accelerator-hostile; the idiomatic device analog is a uniform grid.
 
-TPU cost model (measured): random gathers are the scarce resource (~5-7
-GB/s effective vs ~100 GB/s for dense ops), so the design minimizes gather
-count and volume:
+Cost model: random gathers are the scarce resource next to dense
+elementwise work, so the design minimizes gather count and volume:
 
 1. every body's AABB QUANTIZES to a 10-bit-per-axis integer box (floor
    minima, ceil maxima — a conservative superset of the true box, at most
@@ -20,9 +19,9 @@ count and volume:
 2. a (bucket, slot, 3)-int32 table is built with three SCALAR scatters:
    [id | layer | active], [qmin xyz], [qmax xyz] — the quantized box
    rides IN the table entry, so no downstream per-candidate fetch exists
-   at all (the round-3 design row-gathered each candidate's f32 AABB:
-   N*8C rows, ~3 ms at 10K bodies — the step's hottest op)
-3. each body row-gathers its 8 cells' entry lists (N*8 narrow rows — TPU
+   at all (an earlier design row-gathered each candidate's f32 AABB: N*8C
+   rows, the step's hottest op)
+3. each body row-gathers its 8 cells' entry lists (N*8 narrow rows —
    gathers price per ROW)
 4. all pair filters (quantized-box overlap, layers, self, active) run
    densely on the fetched ints; the conservative quantization only ADDS
@@ -118,8 +117,8 @@ def find_candidates(
 
     # 1. 8 insertion keys per body (dups where the AABB spans < 2 cells are
     # collapsed to the sentinel so each (cell, body) appears once).
-    # Per-axis (N, 8) planes — the (N, 8, 3) stacked form pads its 3-lane
-    # minor dim to 128 (measured 0.33 ms of reduce_and at 1.8 GB/s)
+    # Per-axis (N, 8) planes — the (N, 8, 3) stacked form puts a 3-wide
+    # axis minor, which every reduction then strides over
     offs = np.array([(ox, oy, oz) for ox in (0, 1) for oy in (0, 1)
                      for oz in (0, 1)], np.int32)        # (8, 3)
     cx8 = cmin[:, 0:1] + offs[None, :, 0]                # (N, 8)
@@ -131,8 +130,8 @@ def find_candidates(
     key8 = jnp.where(covered & in_grid[:, None], key8, sentinel)  # (N, 8)
 
     # 2. hash the cell space down to O(bodies) buckets: a dense
-    # grid_dim^3-cell table costs ~5 ms/step of init/reshape traffic at
-    # 10K bodies (64^3 cells = 67 MB) while being ~99% empty. Bucket
+    # grid_dim^3-cell table (64^3 cells = 67 MB) costs init/reshape
+    # traffic every step while being ~99% empty. Bucket
     # collisions between occupied cells only ADD candidates (killed by the
     # AABB/home-cell filters below); colliding cells share the bucket's
     # slot capacity — the same fixed-capacity drop contract as everywhere
@@ -163,15 +162,15 @@ def find_candidates(
     else:
         # huge body counts: int32 pack overflows; variadic sort fallback
         # (wrapped-negative keys would be silently dropped by the scatter,
-        # killing collisions for half the grid — the round-2 bug)
+        # killing collisions for half the grid)
         key_sorted, body_sorted = jax.lax.sort(
             (hkey8.reshape(-1), body8.reshape(-1)), num_keys=1)
 
     # 3. dense (bucket, slot, 3) int32 table via three SCALAR scatters:
     # [id | layer<<17 | active<<20], [qmin xyz, 10 bits each],
     # [qmax xyz]. The quantized box rides IN the entry, so the filters
-    # below need NO per-candidate fetch (round 3 row-gathered each
-    # candidate's f32 AABB: N*8C rows, ~3 ms at 10K bodies). Slot within
+    # below need NO per-candidate fetch (no row gather of each
+    # candidate's f32 AABB: N*8C rows). Slot within
     # a bucket's run comes from run-position arithmetic (cummax of
     # run-start indices); entries beyond cand_per_cell drop.
     m = key_sorted.shape[0]
@@ -189,21 +188,18 @@ def find_candidates(
     qmin_all = pack3(qmin)
     qmax_all = pack3(qmax)
     entry3 = jnp.stack([packed_all, qmin_all, qmax_all], -1)  # (N, 3)
-    ent_sorted = entry3[body_sorted]                 # one 3-lane row gather
-    # LANE-PLANE-MAJOR bucket rows: [ids(c_per) | qmins(c_per) |
+    ent_sorted = entry3[body_sorted]                 # one 3-wide row gather
+    # PLANE-MAJOR bucket rows: [ids(c_per) | qmins(c_per) |
     # qmaxs(c_per)] so the post-gather planes slice out as contiguous
-    # (N, 8, c_per) lane blocks and every downstream filter runs on 2-D
-    # (N, 8C) int planes. The previous entry-major layout forced
-    # (N, 8C, 3) shapes whose 3-lane minor dim pads to 128 lanes on TPU
-    # (42x wasted VPU lanes / HBM tiles — measured 1.0 ms reshape +
-    # 0.7 ms select + 0.3 ms reduce_and per step at 10K bodies).
+    # (N, 8, c_per) blocks and every downstream filter runs on 2-D
+    # (N, 8C) int planes instead of (N, 8C, 3) shapes with a 3-wide
+    # minor axis.
     base = jnp.where((slot < c_per) & (key_sorted < sentinel_bucket),
                      key_sorted * (3 * c_per) + slot, n_buckets * 3 * c_per)
-    # ONE flat scalar scatter for all three lanes (row scatters serialize
-    # pathologically on TPU — the round-3 8-float row scatter cost 3.7 ms
-    # at the same entry count)
+    # ONE flat scalar scatter for all three planes (instead of a row
+    # scatter per entry)
     flat_pos = jnp.concatenate([base, base + c_per, base + 2 * c_per])
-    flat_val = ent_sorted.T.reshape(-1)              # lane-major, matches
+    flat_val = ent_sorted.T.reshape(-1)              # plane-major, matches
     cell_tab = jnp.full((n_buckets * c_per * 3 + 3,), -1, jnp.int32).at[
         flat_pos].set(flat_val, mode="drop")[:-3].reshape(
         n_buckets, 3 * c_per)

@@ -2,7 +2,7 @@
 
 Rebuild of RigidbodyComponent constraints (include/garden/system/physics.
 hpp:368-373: Fixed/Point constraints to other entities, created via Jolt's
-constraint system and resolved post-deserialize by UID). TPU formulation:
+constraint system and resolved post-deserialize by UID). Formulation here:
 fixed-capacity constraint arrays solved with the same mass-split Jacobi
 velocity iterations + positional projection as contacts.
 

@@ -5,7 +5,7 @@ Rebuild of Jolt's narrowphase contact generation as stepped by the reference
 radius conventions from include/garden/system/physics.hpp:874-881). Instead
 of per-pair virtual dispatch, every supported shape-pair kernel runs
 vectorized over the whole candidate pair list and `jnp.select` picks the
-right result per pair — branch-free, VPU-friendly.
+right result per pair — branch-free, dense elementwise work.
 
 Supported pairs: sphere/box/capsule/plane cross products (box-box runs the
 full 15-axis SAT including the 9 edge-edge cross axes), hull pairs
@@ -208,8 +208,8 @@ def capsule_box(pa, qa, ra, hha, pb, qb, half_b, margin):
 
 def _box_corners_world(p, q, half, rot=None):
     """(..., 8, 3) world corners — explicit sign combination of the scaled
-    box axes (a tiny batched matmul here runs at ~10 GB/s on the MXU; the
-    broadcasted VPU form is ~5x faster).
+    box axes (a broadcasted elementwise form instead of a tiny batched
+    matmul of low arithmetic intensity).
 
     rot: optional precomputed rotation (the dispatch precomputes it ONCE
     per BODY and rides it in the pair record — per-pair quat math ran at
@@ -226,8 +226,8 @@ def _box_corners_world(p, q, half, rot=None):
 
 
 def _dot3(a, b):
-    """Explicit 3-component dot over broadcasted operands: keeps the work on
-    the VPU instead of a low-intensity dot_general."""
+    """Explicit 3-component dot over broadcasted operands: elementwise work
+    that fuses, instead of a low-intensity dot_general."""
     return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
             + a[..., 2] * b[..., 2])
 
@@ -256,9 +256,8 @@ def _top4(x: Array) -> Tuple[Array, Array]:
 def _top4_sorted(pen: Array, columns) -> Tuple[Array, list]:
     """Keep the 4 deepest candidates of `pen` (..., n) along with per-
     candidate payload `columns` (list of (..., n) arrays) — ONE variadic
-    lax.sort instead of top_k + one-hot row contractions (the batched
-    (.., 4, n) one-hot einsums ran at ~11 GB/s and were a top-3 cost of
-    the 10K-body step; a width-n bitonic sort is pure VPU work).
+    lax.sort instead of top_k + batched (.., 4, n) one-hot row
+    contractions of low arithmetic intensity.
 
     Ranking uses depth QUANTIZED to 1 mm so the kept SET is stable while
     a resting body rocks by less than that: face-face manifolds offer ~8
@@ -297,8 +296,7 @@ def _top4_manifold(shape, pen: Array, point: Array, normal: Array,
 
 def _take4_rows(x: Array, idx: Array) -> Array:
     """x[..., idx, :] for the top-4 indices — dense one-hot contraction
-    (take_along_axis gathers at ~4 GB/s on TPU; this is ~30x faster for
-    the small k here)."""
+    over the small k here (math3d one-hot notes)."""
     return m3.gather_rows(x, idx)
 
 
@@ -327,8 +325,8 @@ def box_box(pa, qa, half_a, pb, qb, half_b, margin, ra=None, rb=None):
     def proj_radius(rot, half, axis):
         # sum_i half_i * |dot(col_i(rot), axis)| ; rot cols are box axes
         cols = jnp.swapaxes(rot, -1, -2)  # (..., 3(axis), 3)
-        # explicit per-axis |dot|: VPU broadcasting beats the tiny
-        # batched dot_general this einsum lowers to
+        # explicit per-axis |dot|: elementwise broadcasting instead of
+        # the tiny batched dot_general this einsum lowers to
         acc = 0.0
         for a_i in range(3):
             acc = acc + half[..., a_i, None] * jnp.abs(
@@ -1139,14 +1137,13 @@ def generate_contacts(
 
     Gather discipline: per-pair body attributes come from TWO packed record
     row gathers (pos+quat+params+type in one (N, 12) row) instead of eight
-    separate array gathers — TPU random gathers pay per op and per element,
-    not per byte.
+    separate array gathers — random gathers pay per op and per row, not
+    per byte.
     """
     body_margin = margin if (hasattr(margin, "ndim") and margin.ndim == 1
                              and margin.shape[0] == pos.shape[0]) else None
-    # NOTE: riding per-body quat_to_mat3 results (9 extra lanes) in this
-    # record was tried in round 5 and measured WORSE (collide 6.23 ->
-    # 6.62 ms/frame) — the wider rows slow the P-row gather more than the
+    # NOTE: per-body quat_to_mat3 results (9 extra columns) stay out of
+    # this record — wider rows slow the P-row gather more than the
     # per-pair quat math costs; kernels recompute rotations from quats
     cols = [pos, quat, params, stype.astype(jnp.float32)[:, None]]
     if body_margin is not None:

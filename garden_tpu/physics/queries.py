@@ -3,8 +3,8 @@
 Rebuild of the narrow-phase query API the reference exposes (PhysicsSystem
 ray AND shape casts via Jolt's NarrowPhaseQuery, physics.hpp castRay/castShape
 sections). Vectorized: one query is tested against every body analytically
-and the nearest hit wins — at fixed capacities this is faster on TPU than a
-tree walk.
+and the nearest hit wins — at fixed capacities this suits a data-parallel
+device better than a tree walk.
 
 Supported:
 - `cast_ray`: exact sphere/box/plane/capsule/hull/compound/mesh hits with
@@ -379,7 +379,7 @@ def cast_ray(state: Dict[str, Any], origin: Array, direction: Array,
 
 def _closest_on_segment_single(a0, a1, p):
     d = a1 - a0
-    t = jnp.dot(p - a0, d) / jnp.maximum(jnp.dot(d, d), 1e-12)
+    t = m3.dot(p - a0, d) / jnp.maximum(m3.dot(d, d), 1e-12)
     return a0 + d * jnp.clip(t, 0.0, 1.0)
 
 

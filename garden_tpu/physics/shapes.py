@@ -148,7 +148,7 @@ class ShapeTable:
         self._n_comp = 0
         # triangle-mesh pool (MeshShape analog, physics.hpp:103-153):
         # triangle soup binned into a uniform local-space grid of
-        # fixed-capacity buckets (the TPU analog of Jolt's mesh BVH)
+        # fixed-capacity buckets (the fixed-shape analog of Jolt's mesh BVH)
         self.mesh_grid = mesh_grid
         self.mesh_bucket = mesh_bucket
         self.mesh_tris = np.zeros((max_meshes, mesh_max_tris, 3, 3),

@@ -293,17 +293,16 @@ def collide(state: Dict[str, Any], config: PhysicsConfig,
 
     # PAIR-level compaction into (N, K_act) pairs x MAX_POINTS points:
     # all slots of one pair share the partner, so the solver's
-    # per-iteration partner gathers shrink to (N, K_act) ROWS (TPU gathers
-    # price per row; the old slot-level compaction fetched the same
-    # partner row once per manifold point — 2x the rows at 10K bodies),
+    # per-iteration partner gathers shrink to (N, K_act) ROWS (gathers
+    # price per row; a slot-level compaction would fetch the same
+    # partner row once per manifold point — 2x the rows),
     # and a kept pair always keeps its WHOLE manifold (slot-level budgets
     # could truncate a 4-point resting manifold mid-way, which torques the
     # box). top_k keeps the first `active_pair_budget` touching pairs per
     # row in stable order (globals first — broadphase emits them first).
     # All per-pair fields pack into ONE (N, K, 8*mp + 1) record so the
-    # compaction is a single one-hot MXU contraction (TPU random gathers
-    # run ~30x slower; separate per-field contractions lower to slow
-    # reduce_sums).
+    # compaction is a single one-hot contraction at HIGHEST precision
+    # (separate per-field contractions lower to many small reductions).
     mp = narrowphase.MAX_POINTS
     pair_ok = jnp.any(man["valid"].reshape(n, k, mp), axis=-1)  # (N, K)
     k_act = min(active_pair_budget(config), k)
@@ -313,9 +312,8 @@ def collide(state: Dict[str, Any], config: PhysicsConfig,
         # the candidate layout IS the solver layout — (n*k, mp, ...) ->
         # (n, k*mp, ...) merges leading dims (a bitcast, no relayout), so
         # the whole pack+top_k+one-hot compaction stage drops out
-        # (measured ~1.3 ms/step of lane-padded data movement at 245K
-        # pairs; every packed-record formulation tried was WORSE — lane
-        # concats/tiles of 4-lane columns are a relayout per operand).
+        # (its packed-record concats/tiles of 4-wide columns are a
+        # relayout per operand).
         # The north-star configs (bench.py / __graft_entry__) size
         # max_active_contacts to take this path: strictly better manifold
         # retention (nothing is ever dropped) AND faster.
@@ -389,9 +387,8 @@ def step(state: Dict[str, Any], config: PhysicsConfig,
         contacts = collide(state, config, present_types)
     # warm starting: impulses persist in the COMPACTED layout, identified by
     # key = partner*4 + manifold-point index. Matching old slots to new is a
-    # dense (s_act x s_act) comparison + one MXU contraction — no gathers,
-    # no full-layout scatter (the round-1 design carried a 4x-wider slot
-    # array through two random gathers per step).
+    # dense (s_act x s_act) comparison + one one-hot contraction — no
+    # gathers, no full-layout scatter.
     mp = narrowphase.MAX_POINTS
     with jax.named_scope("warm_match"):
         # PAIR-level matching: a row's partner is unique per pair (the
@@ -401,7 +398,7 @@ def step(state: Dict[str, Any], config: PhysicsConfig,
         # across steps, narrowphase._top4_sorted). The former slot-level
         # key compare built an (N, s_act, s_act) match against
         # (N, s_act, 3) impulses; pair-level shrinks the dense compare
-        # 16x and the contraction 4x (measured 0.42 -> ~0.1 ms/step).
+        # 16x and the contraction 4x.
         n_b, k_act_w = contacts["pair_partner"].shape
         pair_ok_any = jnp.any(
             contacts["valid"].reshape(n_b, k_act_w, mp), axis=-1)
@@ -413,7 +410,7 @@ def step(state: Dict[str, Any], config: PhysicsConfig,
                            state["warm"]["t2"]],
                           axis=-1)                        # (N, s_act, 3)
         wpack = wpack.reshape(n_b, k_act_w, mp * 3)       # pair-major rows
-        wc = jnp.einsum("nso,nod->nsd", match, wpack)     # (N, K_act, 3mp)
+        wc = m3.einsum("nso,nod->nsd", match, wpack)      # (N, K_act, 3mp)
         wc = wc.reshape(n_b, k_act_w * mp, 3)
         warm_compact = {"n": wc[..., 0], "t1": wc[..., 1], "t2": wc[..., 2]}
     # With the split-impulse position solve active, velocity-level

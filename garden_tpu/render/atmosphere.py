@@ -6,8 +6,8 @@ transmittance LUT 256x64, multi-scatter LUT 32^2, sky-view LUT, SH ambient
 generation via sh-generate.comp; LUT sizes in shaders/atmosphere/
 constants.h:22-26).
 
-TPU-native twist: texture LUT lookups are gathers, which serialize on the
-VPU, so the *frame path* evaluates transmittance analytically with a
+Device twist: texture LUT lookups are per-pixel gathers, so the *frame
+path* evaluates transmittance analytically with a
 Chapman-function approximation — pure dense math per pixel — while the
 reference's LUTs are still available (`transmittance_lut`) for tests and
 offline use. Ambient diffuse comes from an order-2 spherical-harmonics
@@ -306,8 +306,8 @@ def sh_irradiance(normal: Array, sh: Array) -> Array:
 
     Evaluated as an UNROLLED 9-term fma chain on (..., 1) x (3,) factors:
     the einsum formulation materialized a full-res (H, W, 9) basis stack
-    for the dot_general plus a layout copy (measured ~1.1 ms + ~1 ms copy
-    per 1080p frame); the unrolled form fuses into one elementwise pass."""
+    for the dot_general plus a layout copy; the unrolled form fuses into
+    one elementwise pass."""
     a = (3.141593, 2.094395, 2.094395, 2.094395,
          0.785398, 0.785398, 0.785398, 0.785398, 0.785398)
     x, y, z = normal[..., 0], normal[..., 1], normal[..., 2]

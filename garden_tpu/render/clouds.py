@@ -3,9 +3,10 @@
 Rebuild of CloudsRenderSystem (include/garden/system/render/clouds.hpp:46,
 source/system/render/clouds.cpp:117-269 — Horizon-Zero-Dawn-style raymarch
 through prebaked 3D noise). The reference bakes 3D noise textures once and
-samples them per step; texture sampling is a gather on TPU, so here the
-noise evaluates *procedurally* per step (ops/noise.py perlin3 is dense VPU
-math — the same trade as the atmosphere's analytic transmittance).
+samples them per step; texture sampling is a gather here, so the noise
+evaluates *procedurally* per step (ops/noise.py perlin3 is dense
+elementwise math — the same trade as the atmosphere's analytic
+transmittance).
 
 A flat cloud slab [base, top] is marched with a fixed step count; density =
 remapped fBm with a coverage threshold; lighting = Beer-Lambert toward the
@@ -29,7 +30,7 @@ def _density(p: Array, time: Array, coverage: float, seed: int = 0) -> Array:
 
     Perlin-Worley base eroded by Worley detail — the same two-texture recipe
     the reference prebakes (clouds.cpp:117-269), evaluated procedurally per
-    step (dense VPU math instead of 3D texture gathers)."""
+    step (dense elementwise math instead of 3D texture gathers)."""
     x = p[..., 0] * 0.004 + time * 0.01
     y = p[..., 1] * 0.01
     z = p[..., 2] * 0.004

@@ -18,15 +18,15 @@ raster side by side into ONE mixed-resolution atlas:
 (2D shelf packing, `cascade_layout`: smaller cascades stack vertically —
 fewer raster tiles and a binning key space that keeps the packed sort.)
 One triangle-setup pass vectorized over cascades, one binning sort, one
-Pallas depth launch. Per-cascade caster culling falls out of setup validity
+Triton depth-kernel launch. Per-cascade caster culling falls out of setup validity
 (triangles outside a cascade's ortho bounds never bin); far cascades can run
-at reduced resolution (ShadowConfig.cascade_sizes), which cuts raster VPU
-work roughly with pixel count while keeping screen-space texel density.
+at reduced resolution (ShadowConfig.cascade_sizes), which cuts raster work
+roughly with pixel count while keeping screen-space texel density.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -93,8 +93,8 @@ def fit_cascades(
     window in the SHARED view. Sharing the view (instead of a per-slice
     lookAt as csm.cpp fits) is equivalent up to the ortho translation and
     lets render_cascades transform every caster vertex to light space
-    ONCE, with per-cascade coords as cheap affine maps (the three per-
-    cascade 4x4 transforms cost ~1.5 ms of einsum+reshape at 123K tris).
+    ONCE, with per-cascade coords as cheap affine maps instead of three
+    per-cascade 4x4 transforms of every caster.
 
     Returns {"view" (4,4), "projs" (C,4,4) ortho crops, "lvps" (C,4,4)}.
     """
@@ -110,7 +110,7 @@ def fit_cascades(
         for x in (-1.0, 1.0):
             for y in (-1.0, 1.0):
                 for z in (z0, z1):
-                    h = inv_view_proj @ jnp.array([x, y, z, 1.0])
+                    h = m3.matmul(inv_view_proj, jnp.array([x, y, z, 1.0]))
                     corners.append(h[:3] / h[3])
         return jnp.stack(corners)  # (8, 3)
 
@@ -153,7 +153,7 @@ def _setup_cascades(
     the coefficients read straight off the ortho matrices (bitwise
     consistent with the lvps the resolve uses). No per-cascade 4x4
     transform, no w division (ortho w == 1), no near clip. Fields come
-    out corner-major (3, C*T) / (C*T,) — T stays in the lane-minor dim
+    out corner-major (3, C*T) / (C*T,) — T stays in the minor dim
     throughout (see setup_triangles_planes) — ready for one binning pass."""
     c = projs.shape[0]
     t = lx.shape[1]
@@ -206,6 +206,72 @@ def _setup_cascades(
     }
 
 
+def light_planes(pos_planes: Tuple[Array, Array, Array],
+                 light: Dict[str, Array]) -> Tuple[Array, Array, Array]:
+    """World corner planes (3 x (3, T)) -> SHARED light-view planes: ONE
+    transform for all cascades (fit_cascades); per-cascade coords are the
+    affine maps of _setup_cascades. Unrolled per component (see
+    math3d.apply_mat4 notes)."""
+    px, py, pz = pos_planes
+    v = light["view"]
+    return tuple(v[i, 0] * px + v[i, 1] * py + v[i, 2] * pz + v[i, 3]
+                 for i in range(3))
+
+
+def atlas_depth_inputs(
+    lplanes: Tuple[Array, Array, Array],
+    mask: Array,               # (T,) casters for this atlas
+    light: Dict[str, Array],
+    cfg: ShadowConfig,
+    max_per_tile: int = 256,
+    translucent: bool = False,
+) -> Dict[str, Any]:
+    """Setup + binning of one cascade-atlas pass: the keyword arguments
+    of raster.rasterize_depth (setup, tile_tris, counts, big_list, width,
+    height, tile, atlas_bounds, tri_atlas, tile_h). `translucent` bins for
+    the ordered tint blend too: id-ordered slot lists at half capacity."""
+    sizes, offsets, atlas_w, atlas_h = cascade_layout(cfg)
+    c_count = light["projs"].shape[0]
+    t = lplanes[0].shape[1]
+    bounds = tuple((offsets[ci][0], offsets[ci][0] + sizes[ci],
+                    offsets[ci][1], offsets[ci][1] + sizes[ci])
+                   for ci in range(c_count))
+    with jax.named_scope("setup"):
+        setup = _setup_cascades(*lplanes, mask, sizes, offsets,
+                                light["projs"])
+    # NOTE on early-z ordering: binning depth-ordered (front-to-back from
+    # the light) to drive raster._depth_kernel's early-z termination costs
+    # a rank scatter + inverse gather, and on the dense-pile flagship gap
+    # pixels see the ground plane between casters, which keeps every
+    # tile's near coverage incomplete. The kernel keeps the termination
+    # (free when bins are unordered) for scenes that do cover.
+    th = cfg.atlas_tile_h or 128
+    cap = max(64, (max_per_tile * th // 128) // 16 * 16)
+    fy = cfg.atlas_foot_y or max(2, min(8, 256 // th))
+    with jax.named_scope("bin"):
+        # the opaque depth raster reduces per pixel order-independently,
+        # so a 2x2 footprint qualifies for corner binning: ONE sorted entry
+        # per caster instead of foot*foot_y slot copies. Light-space ground
+        # and other large casters ride the big list, which every atlas
+        # tile draws.
+        if translucent:
+            tiles, counts, big = raster.bin_triangles(
+                setup, atlas_w, atlas_h, 128, max(32, cap // 2), foot=2,
+                tile_h=th, foot_y=fy)
+        elif fy == 2:
+            tiles, counts, big = raster.bin_triangles_corner(
+                setup, atlas_w, atlas_h, 128, cap, max_big=256, tile_h=th)
+        else:
+            tiles, counts, big = raster.bin_triangles(
+                setup, atlas_w, atlas_h, 128, cap, foot=2, max_big=256,
+                tile_h=th, foot_y=fy)
+    return dict(setup=setup, tile_tris=tiles, counts=counts, big_list=big,
+                width=atlas_w, height=atlas_h, tile=128,
+                atlas_bounds=bounds,
+                tri_atlas=jnp.repeat(jnp.arange(c_count, dtype=jnp.int32), t),
+                tile_h=th)
+
+
 def render_cascades(
     world_positions: Array,
     indices: Array,
@@ -226,107 +292,41 @@ def render_cascades(
     None for opaque-only scenes.
 
     pos_planes: per-component (3, T) world corner planes
-    (mesh.transform_triangle_planes) — the lane-dense preferred input.
+    (mesh.transform_triangle_planes) — the preferred input.
     tri_world: (T, 3, 3) fallback (converted to planes).
     tri_translucent/tri_tint enable the translucent map ((T,) mask +
     (T, 4) rgba); omitted = opaque only."""
-    sizes, offsets, atlas_w, atlas_h = cascade_layout(cfg)
     if pos_planes is None:
         if tri_world is None:
             tri_world = world_positions[indices]         # (T, 3, 3)
         pos_planes = tuple(jnp.transpose(tri_world[..., i])
                            for i in range(3))            # 3 x (3, T)
-    px, py, pz = pos_planes
-    t = px.shape[1]
     with_trans = tri_translucent is not None and tri_tint is not None
-    # ONE shared-view transform for all cascades (fit_cascades): the
-    # per-cascade coords are affine maps applied in _setup_cascades;
-    # unrolled per-component (see math3d.apply_mat4 notes)
-    c_count = light["projs"].shape[0]
-    v = light["view"]
-    lx = v[0, 0] * px + v[0, 1] * py + v[0, 2] * pz + v[0, 3]
-    ly = v[1, 0] * px + v[1, 1] * py + v[1, 2] * pz + v[1, 3]
-    lz = v[2, 0] * px + v[2, 1] * py + v[2, 2] * pz + v[2, 3]
-
-    bounds = tuple((offsets[ci][0], offsets[ci][0] + sizes[ci],
-                    offsets[ci][1], offsets[ci][1] + sizes[ci])
-                   for ci in range(c_count))
-    tri_atlas = jnp.repeat(jnp.arange(c_count, dtype=jnp.int32), t)
-
+    lplanes = light_planes(pos_planes, light)
     opaque_mask = tri_valid & (~tri_translucent if with_trans
                                else jnp.ones_like(tri_valid))
-    with jax.named_scope("setup"):
-        atlas_setup = _setup_cascades(lx, ly, lz, opaque_mask,
-                                      sizes, offsets, light["projs"])
-    # NOTE on early-z ordering: binning depth-ordered (front-to-back from
-    # the light) to drive raster._depth_kernel's early-z termination was
-    # measured a NET LOSS on the dense-pile flagship (round 4): the rank
-    # scatter + inverse gather cost ~6 ms while the kernel saved only
-    # ~0.2 ms, because gap pixels see the ground plane between casters and
-    # keep every tile's near coverage incomplete. The kernel keeps the
-    # termination (free when bins are unordered) for scenes that do cover.
-    th = cfg.atlas_tile_h or 128
-    cap = max(64, (max_per_tile * th // 128) // 16 * 16)
-    fy = cfg.atlas_foot_y or max(2, min(8, 256 // th))
-    max_active = getattr(cfg, "max_active_tiles", None)
-    with jax.named_scope("bin"):
-        # depth raster reduces per pixel order-independently, so the
-        # cascade pass qualifies for corner binning: ONE sorted entry per
-        # caster instead of foot*foot_y slot copies (the 4x-bigger slot
-        # sort was 2.2 ms/frame on the flagship atlas, round-5 trace).
-        # Falls back to slot binning for non-2x2 footprints.
-        corner = fy == 2
-        sup_bins = act = None
-        if max_active:
-            if corner:
-                tiles, counts, big, act = raster.bin_triangles_corner(
-                    atlas_setup, atlas_w, atlas_h, 128, cap,
-                    tile_h=th, max_big=256, max_active=max_active)
-            else:
-                tiles, counts, big, act = raster.bin_triangles(
-                    atlas_setup, atlas_w, atlas_h, 128, cap, foot=2,
-                    tile_h=th, foot_y=fy, max_big=256,
-                    max_active=max_active)
-            # 512 x (8 tile_h) px super-tiles for the big-caster lists
-            sup_bins = raster.bin_big_supertiles(
-                atlas_setup, big, atlas_w, atlas_h, 128, th,
-                sup_x=4, sup_y=max(128 // th, 1), cap=64)
-        elif corner:
-            tiles, counts, big = raster.bin_triangles_corner(
-                atlas_setup, atlas_w, atlas_h, 128, cap, tile_h=th)
-        else:
-            tiles, counts, big = raster.bin_triangles(
-                atlas_setup, atlas_w, atlas_h, 128, cap, foot=2,
-                tile_h=th, foot_y=fy)
+    opaque = atlas_depth_inputs(lplanes, opaque_mask, light, cfg,
+                                max_per_tile)
     with jax.named_scope("raster"):
-        depth_atlas = raster.rasterize_depth(atlas_setup, tiles, counts, big,
-                                             atlas_w, atlas_h, 128,
-                                             atlas_bounds=bounds,
-                                             tri_atlas=tri_atlas, tile_h=th,
-                                             sup_bins=sup_bins,
-                                             max_active=max_active,
-                                             act_ids=act)
+        depth_atlas = raster.rasterize_depth(**opaque)
 
     trans_atlas = None
     if with_trans:
-        tsetup = _setup_cascades(lx, ly, lz, tri_valid & tri_translucent,
-                                 sizes, offsets, light["projs"])
-        ttiles, tcounts, tbig = raster.bin_triangles(
-            tsetup, atlas_w, atlas_h, 128, max(32, cap // 2), foot=2,
-            tile_h=th, foot_y=fy)
-        tdepth = raster.rasterize_depth(tsetup, ttiles, tcounts, tbig,
-                                        atlas_w, atlas_h, 128,
-                                        atlas_bounds=bounds,
-                                        tri_atlas=tri_atlas, tile_h=th)
+        trans = atlas_depth_inputs(lplanes, tri_valid & tri_translucent,
+                                   light, cfg, max_per_tile,
+                                   translucent=True)
+        tdepth = raster.rasterize_depth(**trans)
         # transmitted tint: translucent casters blend src-over onto a
         # fully-lit white background in bin order, z-tested against the
         # opaque depth (only casters the sun reaches matter)
-        tint_all = jnp.tile(tri_tint, (c_count, 1))
+        c_count = light["projs"].shape[0]
+        atlas_w, atlas_h = trans["width"], trans["height"]
         tint = raster.rasterize_sorted_blend(
-            tsetup, tint_all, ttiles, tcounts, tbig, depth_atlas,
-            jnp.ones((atlas_h, atlas_w, 3), jnp.float32),
-            atlas_w, atlas_h, 128,
-            atlas_bounds=bounds, tri_atlas=tri_atlas, tile_h=th)
+            trans["setup"], jnp.tile(tri_tint, (c_count, 1)),
+            trans["tile_tris"], trans["counts"], trans["big_list"],
+            depth_atlas, jnp.ones((atlas_h, atlas_w, 3), jnp.float32),
+            atlas_w, atlas_h, 128, atlas_bounds=trans["atlas_bounds"],
+            tri_atlas=trans["tri_atlas"], tile_h=trans["tile_h"])
         trans_atlas = jnp.concatenate([tint, tdepth[..., None]], axis=-1)
     return depth_atlas, trans_atlas
 
@@ -341,9 +341,9 @@ def _project_cascades(
     """Per-pixel atlas (u, v), reverse-Z compare depth z, and validity.
 
     ONE dense transform to the shared light view, then every cascade is
-    an affine map of it (selected by view distance) — a (h, w)-indexed
-    gather of per-pixel matrices lowers catastrophically on TPU, and the
-    per-cascade 4x4 einsums this replaces were 3x the transform work."""
+    an affine map of it (selected by view distance) — no (h, w)-indexed
+    gather of per-pixel matrices, and a third of the transform work of
+    per-cascade 4x4 einsums."""
     sizes, offsets, _, _ = cascade_layout(cfg)
     projs = light["projs"]
     c_count = len(sizes)
@@ -394,7 +394,7 @@ def resolve_shadow(
     atlas_w = depth_atlas.shape[1]
 
     # decimated resolve: the shadow-map lookup gather is latency-bound per
-    # pixel (full-res packed-row taps measured 46 ms/frame at 1080p), so
+    # pixel, so
     # the compare tap runs every `resolve_step` pixels and the factor
     # upsamples DEPTH-GUIDED (joint bilateral) so silhouettes stay crisp
     # at geometry edges. The translucent tint map is low-frequency and
@@ -419,9 +419,9 @@ def resolve_shadow(
         * atlas_w + jnp.clip(u.astype(jnp.int32), 0, atlas_w - 1)
 
     # single shadow-map tap + screen-space 3x3 smoothing of the binary
-    # factor: per-pixel gathers cost ~15ms each at 1080p on TPU, so the PCF
-    # softening moves from light space (9 gathers) to screen space (8 dense
-    # shifted adds, ~free) — visually equivalent for small radii.
+    # factor: per-pixel gathers are the expensive op, so the PCF softening
+    # moves from light space (9 gathers) to screen space (8 dense shifted
+    # adds) — visually equivalent for small radii.
     # reverse-Z: lenient compare (z + bias >= occ) prevents self-shadow acne
     occ = depth_atlas.reshape(-1)[flat]
     lit = jnp.where(z >= occ, 1.0, 0.0)
@@ -431,8 +431,7 @@ def resolve_shadow(
         # translucent modulation at quarter density (the tint map is
         # low-frequency): recompute the projection on further-decimated
         # positions — strided slices of the full-res index arrays lower to
-        # slow gathers on TPU (~6 ms measured), dense decimation + a small
-        # re-projection is ~free
+        # gathers; dense decimation + a small re-projection is cheap
         from garden_tpu.ops.blur import decimate2x
         tsub = max(4 // step, 1)
         if tsub > 1:

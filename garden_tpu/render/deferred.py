@@ -40,7 +40,7 @@ class DeferredRenderer:
         # trace-time pass gating on scene content (the reference's anyOIT /
         # anyRefraction / anyTranslucent flags, deferred.hpp:122-123): an
         # OIT pass over a scene with no translucent triangles costs a full
-        # bin+raster for nothing (~66ms at 1080p/123K tris)
+        # bin+raster for nothing
         self.any_translucent = bool(scene.tri_translucent_mask().any())
         self.any_sorted = bool(scene.tri_sorted_mask().any())
         self.any_refract = bool(scene.tri_refract_mask().any())
@@ -50,17 +50,10 @@ class DeferredRenderer:
 
     def initial_frame_state(self) -> Dict[str, Array]:
         state = {"avg_luminance": jnp.float32(0.18)}
+        w, h = self.frame_size()
         if self.config.use_occlusion_culling or self.config.use_velocity:
             # previous frame's depth (Hi-Z source / disocclusion reference;
             # empty depth = nothing occludes, everything disoccluded)
-            scale = self.config.render_scale
-            if scale != 1.0:
-                w = max(int(self.config.width * scale) // self.config.tile_size,
-                        1) * self.config.tile_size
-                h = max(int(self.config.height * scale) // self.config.tile_size,
-                        1) * self.config.tile_size
-            else:
-                w, h = self.config.width, self.config.height
             state["prev_depth"] = jnp.zeros((h, w), jnp.float32)
         if self.config.use_velocity:
             state["prev_view_proj"] = jnp.eye(4, dtype=jnp.float32)
@@ -68,14 +61,6 @@ class DeferredRenderer:
             # SSR/SSGI trace against the previous frame's lit HDR (the
             # reflection/GI-buffer temporal flow, render/ssr.py + ssgi.py);
             # black start = no reflections/bounce on frame 0
-            scale = self.config.render_scale
-            if scale != 1.0:
-                w = max(int(self.config.width * scale)
-                        // self.config.tile_size, 1) * self.config.tile_size
-                h = max(int(self.config.height * scale)
-                        // self.config.tile_size, 1) * self.config.tile_size
-            else:
-                w, h = self.config.width, self.config.height
             state["prev_hdr"] = jnp.zeros((h, w, 3), jnp.float32)
             state.setdefault("prev_view_proj", jnp.eye(4, dtype=jnp.float32))
         return state
@@ -109,7 +94,7 @@ class DeferredRenderer:
             dist = m3.length(center - constants["camera_pos"])
             level = jnp.sum(dist[:, None] > scene["inst_lod_dist"],
                             axis=-1).astype(jnp.int32)
-        # instance->triangle expansion: lane-dense blocked broadcast when
+        # instance->triangle expansion: dense blocked broadcast when
         # the scene is blocked (mesh.expand_instance_to_tris), else gather
         vis_t = mesh.expand_instance_to_tris(
             visible, self.scene_host.tri_instance, t_total, fill=False)
@@ -126,37 +111,47 @@ class DeferredRenderer:
 
     # -- the frame ------------------------------------------------------------
 
-    def render(
+    def frame_size(self):
+        """(w, h) of the 3D passes: the display size times render_scale
+        (the DLSS/upscaling hook, graphics.hpp:139), whole tiles."""
+        cfg = self.config
+        if cfg.render_scale != 1.0:
+            return tuple(
+                max(int(n * cfg.render_scale) // cfg.tile_size, 1)
+                * cfg.tile_size for n in (cfg.width, cfg.height))
+        return cfg.width, cfg.height
+
+    @staticmethod
+    def pass_setup(pos_pl, constants, mask, w, h):
+        """Screen setup of one raster pass from the shared world-space
+        corner planes (main, OIT/sorted/refraction/trans-depth): unrolled
+        clip transform on (3, T) planes (math3d.apply_mat4 notes)."""
+        px, py, pz = pos_pl
+        m = constants["view_proj"]
+        comps = [m[i, 0] * px + m[i, 1] * py + m[i, 2] * pz + m[i, 3]
+                 for i in range(4)]
+        return raster.setup_triangles_planes(*comps, mask, w, h)
+
+    def opaque_pass(
         self,
         scene: Dict[str, Array],
-        inst_matrices: Array,          # (I, 4, 4)
+        inst_matrices: Array,
         constants: Dict[str, Array],
         frame_state: Dict[str, Array],
-        ui_atlas: Optional[Array] = None,
-        ui_sprites: Optional[Dict[str, Array]] = None,
         prev_inst_matrices: Optional[Array] = None,
-        environment: Optional[Array] = None,
-    ) -> Dict[str, Array]:
-        """environment: optional (He, 2He, 3) lat-long radiance map — the
-        static-skybox path (SkyboxRenderSystem, skybox.hpp:48): background,
-        SH diffuse ambient and prefiltered specular come from the map
-        instead of the procedural atmosphere."""
+    ) -> Dict[str, Any]:
+        """The opaque main pass up to the raster: transform, culling,
+        setup, binning and the per-triangle shading records. Returns the
+        raster inputs (setup, tile_tris, counts, big_list) with what the
+        later passes share."""
         cfg = self.config
-        # internal render scale (the DLSS/upscaling hook, graphics.hpp:139):
-        # all 3D passes run at the scaled size; LDR upsamples at the end
-        scale = cfg.render_scale
-        if scale != 1.0:
-            w = max(int(cfg.width * scale) // cfg.tile_size, 1) * cfg.tile_size
-            h = max(int(cfg.height * scale) // cfg.tile_size, 1) * cfg.tile_size
-        else:
-            w, h = cfg.width, cfg.height
-
-        # PreDeferredRender: per-TRIANGLE world transform + frustum cull.
-        # The fused-raster pipeline consumes only triangle-level data, so
-        # the vertex pool never materializes; the transform runs on
-        # per-component (3, T) planes (mesh.transform_triangle_planes) so
-        # T stays in the lane-minor dim end-to-end
+        w, h = self.frame_size()
         scope = jax.named_scope
+        # PreDeferredRender: per-TRIANGLE world transform + frustum cull.
+        # The raster pipeline consumes only triangle-level data, so the
+        # vertex pool never materializes; the transform runs on
+        # per-component (3, T) planes (mesh.transform_triangle_planes) so
+        # T stays the minor dim end-to-end
         with scope("xform_cull"):
             pos_pl, nrm_pl = mesh.transform_triangle_planes(
                 scene, inst_matrices,
@@ -189,29 +184,17 @@ class DeferredRenderer:
         # mesh.hpp:30-40)
         translucent = scene["tri_translucent"]
         nonopaque = translucent | scene["tri_sorted"] | scene["tri_refract"]
-        # the world-space planes (from transform_triangle_planes above) are
-        # shared by every raster pass (main, cascades, OIT/sorted/
-        # refraction/trans-depth)
-        px, py, pz = pos_pl
-        t_cnt = px.shape[1]
-
-        def pass_setup(mask):
-            # unrolled clip transform on (3, T) planes (math3d.apply_mat4
-            # notes: einsum dot_generals force component-minor layouts)
-            m = constants["view_proj"]
-            comps = [m[i, 0] * px + m[i, 1] * py + m[i, 2] * pz + m[i, 3]
-                     for i in range(4)]
-            return raster.setup_triangles_planes(*comps, mask, w, h)
-
+        t_cnt = pos_pl[0].shape[1]
         with scope("setup"):
-            setup = pass_setup(tri_valid & ~nonopaque)
+            setup = self.pass_setup(pos_pl, constants, tri_valid & ~nonopaque,
+                                    w, h)
         # front-to-back binning priority: when a tile overflows its budget,
         # the FARTHEST triangles drop instead of arbitrary ones (round-1
         # dropped by index order, which cut the tops off densely-tessellated
         # meshes — the opaque front-to-back sort of mesh.hpp:196). The
         # policy is a drop HEURISTIC, so a 16-bucket quantized depth key
         # rides inside the binning sort for free (the exact argsort +
-        # inverse-permutation scatter + per-tile remap gather cost ~2 ms)
+        # inverse-permutation scatter + per-tile remap gather are not)
         with scope("prio_ftb"):
             zt = jnp.max(setup["z"], axis=0)
             zlo = jnp.min(jnp.where(setup["valid"], zt, jnp.inf))
@@ -221,9 +204,9 @@ class DeferredRenderer:
             zn = (zt - zlo) / jnp.maximum(zhi - zlo, 1e-12)
             # reverse-Z: near = large z = LOW bucket (sorts first)
             prio_ftb = 15 - jnp.clip((zn * 16.0).astype(jnp.int32), 0, 15)
-        # rectangular raster tiles (see raster.tpu_tile_legal): tile_h<tile
-        # cuts wasted VPU lanes on small triangles; per-tile capacity and
-        # the y-footprint scale to keep coverage/overflow behavior equal
+        # rectangular raster tiles (see raster.tile_layout_ok): tile_h<tile
+        # fits small triangles; per-tile capacity and the y-footprint
+        # scale to keep coverage/overflow behavior equal
         th = cfg.tile_h or cfg.tile_size
         cap_scale = max(th / cfg.tile_size, 0.25)
         cap_main = max(64, int(cfg.max_tris_per_tile * cap_scale) // 16 * 16)
@@ -233,10 +216,7 @@ class DeferredRenderer:
         with scope("bin_main"):
             # foot=2: a 2x(fy) footprint covers triangles up to 256px each
             # axis; larger ones ride the big list. Quarters the pair
-            # emission + packed sort vs foot=4 (measured ~2 ms at 123K tris).
-            # The shaded path FOLDS the big list into each tile's block
-            # (rasterize_visibility_shaded), so big(32) + grid cap must sum
-            # to a 128 multiple to keep the one-hot shading dot lane-exact
+            # emission + packed sort vs foot=4
             tiles_m, counts_m, big_m = raster.bin_triangles(
                 setup, w, h, cfg.tile_size, max(32, cap_main - 32),
                 max_big=32,
@@ -269,17 +249,51 @@ class DeferredRenderer:
                 prev_screen_tri=prev_screen_tri,
                 inv_w=setup["inv_w"],
                 tri_instance_np=self.scene_host.tri_instance)
-        # fused raster + record shading: per-pixel attributes materialize
-        # on the MXU while the tile's records are in VMEM, replacing the
-        # per-pixel record gather (the round-2 frame's hottest op)
-        with scope("raster_shade"):
-            vis, gplanes = raster.rasterize_visibility_shaded(
-                setup, records, tiles_m, counts_m, big_m, w, h,
-                cfg.tile_size, tile_h=th, gbuf=True)
+        return dict(w=w, h=h, tile_h=th, foot_y=fy, cap_half=cap_half,
+                    pos_pl=pos_pl, nrm_pl=nrm_pl, tri_valid=tri_valid,
+                    translucent=translucent, nonopaque=nonopaque,
+                    setup=setup, tile_tris=tiles_m, counts=counts_m,
+                    big_list=big_m, records=records)
+
+    def render(
+        self,
+        scene: Dict[str, Array],
+        inst_matrices: Array,          # (I, 4, 4)
+        constants: Dict[str, Array],
+        frame_state: Dict[str, Array],
+        ui_atlas: Optional[Array] = None,
+        ui_sprites: Optional[Dict[str, Array]] = None,
+        prev_inst_matrices: Optional[Array] = None,
+        environment: Optional[Array] = None,
+    ) -> Dict[str, Array]:
+        """environment: optional (He, 2He, 3) lat-long radiance map — the
+        static-skybox path (SkyboxRenderSystem, skybox.hpp:48): background,
+        SH diffuse ambient and prefiltered specular come from the map
+        instead of the procedural atmosphere."""
+        cfg = self.config
+        scale = cfg.render_scale
+        scope = jax.named_scope
+        op = self.opaque_pass(scene, inst_matrices, constants, frame_state,
+                              prev_inst_matrices)
+        w, h, th, fy = op["w"], op["h"], op["tile_h"], op["foot_y"]
+        cap_half = op["cap_half"]
+        pos_pl, tri_valid = op["pos_pl"], op["tri_valid"]
+        translucent, nonopaque = op["translucent"], op["nonopaque"]
+        setup, records = op["setup"], op["records"]
+        tiles_m, counts_m, big_m = op["tile_tris"], op["counts"], op["big_list"]
+        pass_setup = lambda mask: self.pass_setup(pos_pl, constants, mask,
+                                                  w, h)
+
+        # visibility raster (Triton kernel), then the G-buffer from one
+        # per-pixel record gather + interpolation fusion in XLA
+        with scope("raster"):
+            vis = raster.rasterize_visibility(
+                setup, tiles_m, counts_m, big_m, w, h, cfg.tile_size,
+                tile_h=th)
         with scope("gbuffer"):
             g = gbuffer.shade_gbuffer(
                 vis, setup, scene, None, None,
-                constants=constants, gplanes=gplanes,
+                constants=constants, records=records,
                 with_velocity=cfg.use_velocity,
                 textures=scene.get("textures")
                 if self.scene_host.any_textured else None)
@@ -318,9 +332,12 @@ class DeferredRenderer:
             scfg = cfg.shadow
             near = 0.1
             splits = csm_mod.cascade_splits(scfg, near)
-            light = csm_mod.fit_cascades(constants["inv_view_proj"],
-                                         constants["light_dir"], near,
-                                         splits, near)
+            # cascades fit the camera frustum; a split-frame band passes
+            # the full frame's (parallel/frame_tiles.band_constants)
+            light = csm_mod.fit_cascades(
+                constants.get("shadow_inv_view_proj",
+                              constants["inv_view_proj"]),
+                constants["light_dir"], near, splits, near)
             # translucent casters render into the per-cascade sRGB
             # translucent map (csm.hpp:56-64) when the scene has any
             tri_trans = None
@@ -413,9 +430,8 @@ class DeferredRenderer:
             sky_scope.__enter__()
             rays = lighting.view_rays(g, constants)
             # the sky and cloud raymarches are smooth: march at half res
-            # and tent-upsample the composited result (~4x cheaper;
-            # full-res sky alone measured 2.8 ms at 1080p, the 10-step
-            # 3D-noise cloud march is heavier still)
+            # and tent-upsample the composited result (~4x cheaper; the
+            # 10-step 3D-noise cloud march is heavier still)
             rays_h = decimate2x(rays)
             sky_h = atm.sky_radiance(rays_h, to_light)
             if cfg.use_clouds:
@@ -482,7 +498,8 @@ class DeferredRenderer:
         if cfg.use_oit and self.any_translucent:
             tsetup = pass_setup(tri_valid & translucent)
             ttiles, tcounts, tbig = raster.bin_triangles(
-                tsetup, w, h, cfg.tile_size, cfg.max_tris_per_tile // 2)
+                tsetup, w, h, cfg.tile_size, cfg.max_tris_per_tile // 2,
+                tile_h=th, foot_y=fy)
             # OIT loops one flat per-tile list (order-independent)
             ttiles, tcounts = raster.merge_big_list(ttiles, tcounts, tbig)
             mat_id = scene["inst_material"][
@@ -493,7 +510,7 @@ class DeferredRenderer:
                 [mat[:, 0:3] * 0.8 + mat[:, 5:8], mat[:, 9:10]], axis=-1)
             accum, reveal = oit_mod.rasterize_oit(
                 tsetup, tri_colors, ttiles, tcounts, vis["depth"],
-                w, h, cfg.tile_size)
+                w, h, cfg.tile_size, tile_h=th)
             hdr = oit_mod.composite(hdr, accum, reveal)
 
         # refraction pass (deferred.cpp:584-604): refracted surfaces sample

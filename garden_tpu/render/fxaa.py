@@ -5,11 +5,11 @@ shaders/fxaa.frag — FXAA 3.11 quality variant): luminance edge detection,
 edge-ORIENTED end-search along the edge direction, sub-pixel offset from
 the relative end distances, plus the separate sub-pixel aliasing lowpass.
 
-TPU-first mapping of the per-pixel marching loop: the reference shader
+Data-parallel mapping of the per-pixel marching loop: the reference shader
 walks a data-dependent number of taps per fragment. Data-dependent walks
-don't vectorize on the VPU, so the march is a FIXED schedule of K
-distances sampled densely for every pixel as shifted-image reads (pure
-VPU adds/selects), and each ray's end is picked with a first-true argmax
+don't vectorize, so the march is a FIXED schedule of K distances sampled
+densely for every pixel as shifted-image reads (pure elementwise
+adds/selects), and each ray's end is picked with a first-true argmax
 over the step axis — the same dense-march pattern as render/ssr.py. Both
 edge orientations (horizontal/vertical) are evaluated dense and selected
 per pixel, which costs 2x the shifts but keeps zero gathers.
@@ -58,9 +58,8 @@ def _end_search(edge_luma_pos: Array, edge_luma_neg: Array, is_neg: Array,
         # step is (H, W) elementwise selects XLA fuses into one pass. The
         # previous formulation stacked all K taps into (K, H, W) buffers
         # and reduced with a cumsum-masked sum — materializing four 75 MB
-        # stacks per frame (measured 1.7 ms convert + 0.9 ms reduce +
-        # 0.7 ms cumsum at 1080p). (An argmax+take_along_axis draft was
-        # worse still, ~100 ms — the math3d.py one-hot notes.)
+        # stacks per frame. (An argmax+take_along_axis draft was worse
+        # still — the math3d.py one-hot notes.)
         found = jnp.zeros(local_avg.shape, bool)
         # unfound rays clamp to the schedule's reach (shader behavior:
         # distance saturates at the last tap)

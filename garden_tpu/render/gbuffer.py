@@ -5,13 +5,13 @@ include/garden/system/render/deferred.hpp:20-26,79-92) — the raster stage
 only wrote (tri id, barycentrics, depth); this pass reconstructs per-pixel
 shading inputs (visibility-buffer deferred shading).
 
-TPU shape: per-pixel gathers are the expensive op (measured ~5-15ms per
-gather at 1080p), so the pass does exactly ONE: all per-triangle shading
-data (3 vertex normals, 3 uvs, material row, instance id) is packed into a
-(T, 32) record at frame start (cheap 16K-row gathers) and fetched per pixel
-in a single row gather. World position is NOT gathered at all — it
-reconstructs from the depth buffer and the inverse view-projection, the
-classic deferred trick.
+Per-pixel gathers are the expensive op, so the pass does exactly ONE: all
+per-triangle shading data (3 vertex normals, 3 uvs, material row, instance
+id, previous-frame corners, 1/w) is packed into a (T, 36) record at frame
+start and fetched per pixel in a single row gather `records[tri_id]` (the
+flagship's record table is ~20 MB and stays in the GPU's L2). World
+position is NOT gathered at all — it reconstructs from the depth buffer and
+the inverse view-projection, the classic deferred trick.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ def pack_triangle_records(scene: Dict[str, Array],
     inst = jnp.maximum(scene["tri_instance"], 0)
     mat = None
     if tri_instance_np is not None:
-        # blocked scenes: ONE (I,)-row material gather + a lane-dense
+        # blocked scenes: ONE (I,)-row material gather + a dense
         # instance->triangle broadcast replaces the (T,)-row gather pair
         # (mesh.expand_instance_to_tris)
         from garden_tpu.render.mesh import expand_instance_to_tris
@@ -100,8 +100,8 @@ def reconstruct_position(depth: Array, constants: Dict[str, Array]) -> Array:
     """World position from reverse-Z depth + inverse view-projection.
 
     Unrolled per-component: the einsum form lowers to a (HW, 4) x (4, 4)
-    dot_general that forces channel-minor layouts on 33 MB buffers plus
-    layout copies (~1 ms/frame at 1080p); the unrolled fma chain fuses."""
+    dot_general over the whole frame; the unrolled fma chain fuses into
+    its consumers."""
     h, w = depth.shape
     x = ((jnp.arange(w, dtype=jnp.float32) + 0.5) / w * 2.0 - 1.0)[None, :]
     y = (1.0 - (jnp.arange(h, dtype=jnp.float32) + 0.5) / h * 2.0)[:, None]
@@ -124,76 +124,20 @@ def shade_gbuffer(
     records: Optional[Array] = None,
     with_velocity: bool = False,
     textures: Optional[Array] = None,
-    attrs: Optional[Array] = None,
-    gplanes: Optional[Array] = None,
 ) -> Dict[str, Array]:
     """Reconstruct per-pixel attributes -> G-buffer planes (H, W, C).
 
-    attrs: optional (REC, H, W) per-pixel records already materialized by
-    the fused raster (raster.rasterize_visibility_shaded) — skips the
-    per-pixel record gather entirely (the round-2 frame's hottest op).
-
-    gplanes: optional (18, H, W) FINISHED planes from the in-kernel
-    G-buffer path (raster.rasterize_visibility_shaded(gbuf=True)):
-    [normal3 | uv2 | base3 metallic roughness emissive3 reflectance |
-    tex | instance | velocity2]. The interpolation already happened in
-    VMEM; only texture sampling, position reconstruction and visibility
-    gating remain here."""
+    records: (T, REC_WIDTH) pack_triangle_records output; built here from
+    the scene when omitted."""
     tri = jnp.maximum(vis["tri_id"], 0)          # (H, W)
     visible = vis["tri_id"] >= 0
 
-    if gplanes is not None:
-        gp = lambda a, b: jnp.moveaxis(gplanes[a:b], 0, -1)
-        uv = gp(3, 5)
-        tex_id = gplanes[14].astype(jnp.int32)
-        base_color = gp(5, 8)
-        if textures is not None and textures.shape[0] > 0:
-            s = textures.shape[1]
-            uvw = uv - jnp.floor(uv)
-            tx = jnp.clip((uvw[..., 0] * s).astype(jnp.int32), 0, s - 1)
-            ty = jnp.clip((uvw[..., 1] * s).astype(jnp.int32), 0, s - 1)
-            flat = jnp.clip(tex_id, 0, textures.shape[0] - 1) * (s * s) \
-                + ty * s + tx
-            texel = textures.reshape(-1, 4)[flat]
-            base_color = jnp.where((tex_id >= 0)[..., None],
-                                   base_color * texel[..., :3], base_color)
-        if constants is not None:
-            position = reconstruct_position(vis["depth"], constants)
-            position = jnp.where(visible[..., None], position, 0.0)
-        else:
-            position = jnp.zeros(vis["depth"].shape + (3,), jnp.float32)
-        g = {
-            "visible": visible,
-            "depth": vis["depth"],
-            "position": position,
-            "normal": gp(0, 3),
-            "uv": uv,
-            "base_color": base_color,
-            "metallic": gplanes[8],
-            "roughness": gplanes[9],
-            "emissive": gp(10, 13),
-            "reflectance": gplanes[13],
-            "instance": jnp.where(visible,
-                                  gplanes[15].astype(jnp.int32), -1),
-        }
-        if with_velocity:
-            g["velocity"] = jnp.where(visible[..., None], gp(16, 18), 0.0)
-        return g
-
-    if attrs is not None:
-        # LAZY channel views of the (REC, H, W) attrs: a single
-        # moveaxis(attrs, 0, -1) materializes a ~200 MB (H, W, REC) copy
-        # at 1080p because many consumers read it; per-slice transposes
-        # fuse into each consumer instead (XLA fuses transpose+elementwise)
-        ch = lambda a, b: jnp.moveaxis(attrs[a:b], 0, -1)
-        chs = lambda a: attrs[a]
-    else:
-        if records is None:
-            records = pack_triangle_records(scene, world_normals,
-                                            inv_w=setup["inv_w"])
-        rec = records[tri]                       # (H, W, 36): the ONE gather
-        ch = lambda a, b: rec[..., a:b]
-        chs = lambda a: rec[..., a]
+    if records is None:
+        records = pack_triangle_records(scene, world_normals,
+                                        inv_w=setup["inv_w"])
+    rec = records[tri]                           # (H, W, 36): the ONE gather
+    ch = lambda a, b: rec[..., a:b]
+    chs = lambda a: rec[..., a]
 
     b0 = vis["b0"]
     b1 = vis["b1"]

@@ -14,10 +14,10 @@ what makes it horizon-based: five samples of the same ridge occlude
 exactly as much as one, and only the highest silhouette in each direction
 counts.
 
-TPU formulation: per-pixel jittered taps are dynamic gathers, which lower
-to the slow generic-gather path (measured ~580 ms at 1080p). Instead each
-(direction, step) tap uses a FIXED pixel offset — one edge-padded shift of
-the position buffer, a pure dense VPU op — so the whole pass is
+Formulation: per-pixel jittered taps are dynamic gathers, which lower to
+the slow generic-gather path. Instead each (direction, step) tap uses a
+FIXED pixel offset — one edge-padded shift of the position buffer, a pure
+dense elementwise op — so the whole pass is
 N_DIRS x N_STEPS shifted fused ops, zero gathers. The world-space falloff
 keeps far-apart samples from occluding, which is what the reference's
 depth-scaled screen radius bought.
@@ -55,9 +55,9 @@ def compute_hbao(
     """AO factor (H, W), 1 = unoccluded.
 
     half_res: march at half resolution and joint-bilaterally upsample by
-    view depth (AO is low-frequency; the 8x5 full-res tap set measured
-    3.8 ms/frame at 1080p, half-res is ~1 ms with the same horizons —
-    the reference's HBAO likewise renders sub-res into the AO buffer,
+    view depth (AO is low-frequency; half-res does a quarter of the 8x5
+    tap work with the same horizons — the reference's HBAO likewise
+    renders sub-res into the AO buffer,
     pbr-lighting.cpp blur-chain consumers)."""
     if half_res:
         from garden_tpu.ops.blur import bilateral_upsample_to, decimate2x

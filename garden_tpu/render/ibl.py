@@ -4,13 +4,13 @@ Rebuild of PbrLightingSystem's IBL path (include/garden/system/render/
 pbr-lighting.hpp:65 — DFG LUT + shCoeffs + specular cubemap computed by
 shaders/pbr-lighting/ibl-specular.comp from a source environment map).
 
-TPU shape:
+Device shape:
 - The specular environment is a lat-long (equirect) mip chain prefiltered
   with roughness-matched blurs (the ibl-specular.comp GGX-importance-sample
-  analog, collapsed to separable blurs per mip — dense VPU ops, no RNG).
+  analog, collapsed to separable blurs per mip — dense ops, no RNG).
 - The DFG (environment BRDF) term uses Lazarov's analytic fit instead of the
-  reference's 2D LUT: two fused polynomials per pixel beat a per-pixel LUT
-  gather on TPU by an order of magnitude.
+  reference's 2D LUT: two fused polynomials per pixel instead of a
+  per-pixel LUT gather.
 - Diffuse irradiance stays spherical-harmonics (render/atmosphere.sky_sh /
   sh_irradiance), matching the reference's shCoeffs path.
 """
@@ -94,7 +94,7 @@ def sample_prefiltered(mips: List[Array], dirs: Array,
                        roughness: Array) -> Array:
     """Sample the prefiltered chain at the reflection direction with a
     roughness-selected mip (nearest mip, nearest texel: one gather per mip
-    level touched — gathers are the scarce resource on TPU)."""
+    level touched — gathers are the scarce resource)."""
     n = len(mips)
     level = jnp.clip(roughness, 0.0, 1.0) * (n - 1)
     lo = jnp.floor(level).astype(jnp.int32)

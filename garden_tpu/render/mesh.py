@@ -5,7 +5,7 @@ modelc (include/garden/graphics/modelc.hpp:27), ModelRenderSystem LOD buffers
 (include/garden/system/render/model.hpp:27-46) and the per-frame instance
 buffers MeshRenderSystem bakes (mesh.cpp:331-553). Meshes are host-built
 numpy arrays; a `SceneBuffers` packs every registered mesh into one
-fixed-capacity vertex/index pool (the TPU analog of bindless vertex pulling)
+fixed-capacity vertex/index pool (the analog of bindless vertex pulling)
 and instances reference (mesh id, material id, transform).
 """
 
@@ -199,7 +199,8 @@ class SceneBuffers:
         # LOD chain (ModelRenderSystem LOD buffers, model.hpp:27-38): every
         # level's triangles live in the pool tagged with a level id; the
         # frame selects one level per instance by camera distance — static
-        # shapes, no topology swaps (the TPU take on LOD buffer switching)
+        # shapes, no topology swaps (the static-shape take on LOD buffer
+        # switching)
         self.tri_lod = np.zeros((max_triangles,), np.int8)
         self.inst_lod_dist = np.full((max_instances, MAX_LODS - 1), np.inf,
                                      np.float32)
@@ -371,9 +372,9 @@ class SceneBuffers:
             # = ~740K gather rows/frame at the flagship scene)
             "tri_pos_local": jnp.asarray(self.positions[self.indices]),
             "tri_nrm_local": jnp.asarray(self.normals[self.indices]),
-            # transposed (comp, corner, T) copies for the lane-dense
-            # plane pipeline (transform_triangle_planes): T rides the
-            # 128-lane minor dim, so every per-corner fma is dense
+            # transposed (comp, corner, T) copies for the corner-plane
+            # pipeline (transform_triangle_planes): T rides the minor
+            # dim, so every per-corner fma is dense
             "tri_pos_local_t": jnp.asarray(
                 np.transpose(self.positions[self.indices], (2, 1, 0))),
             "tri_nrm_local_t": jnp.asarray(
@@ -393,7 +394,7 @@ def _blocked_segments(tri_instance_np: "np.ndarray"):
     the pattern isn't blocked (fall back to the gather). Typical scenes
     (one mesh replicated per body + a few singletons) compress to a
     handful of segments, letting the per-triangle matrix fetch lower to
-    broadcast+reshape instead of a (T,) row gather (~1.7 ms at 123K)."""
+    broadcast+reshape instead of a (T,) row gather."""
     ti = np.asarray(tri_instance_np)
     valid = ti >= 0
     n_valid = len(ti) if valid.all() else int(np.argmin(valid))
@@ -424,9 +425,9 @@ def _blocked_segments(tri_instance_np: "np.ndarray"):
 def expand_instance_to_tris(values: Array, tri_instance_np: "np.ndarray",
                             t_total: int, fill=0) -> Optional[Array]:
     """Expand per-instance values (I, ...) to per-triangle (T, ...) via the
-    blocked-segment broadcast (see _blocked_segments) — the lane-dense
-    replacement for a `values[tri_instance]` gather (measured ~0.9 ms at
-    123K triangles for a bool plane). Returns None when the scene isn't
+    blocked-segment broadcast (see _blocked_segments) — the dense
+    replacement for a `values[tri_instance]` gather. Returns None when
+    the scene isn't
     blocked (caller falls back to the gather)."""
     segs = _blocked_segments(tri_instance_np)
     if segs is None:
@@ -451,11 +452,10 @@ def transform_triangle_planes(scene: Dict[str, Array],
                                          Tuple[Array, Array, Array]]:
     """Per-triangle world corners/normals as PER-COMPONENT (3, T) planes.
 
-    The lane-dense twin of transform_triangles: every output keeps T in
-    the 128-lane minor dim (corner-major rows), so the whole transform is
-    dense fma work — the (T, 3, 3) formulation tiles its 3-wide minor dim
-    to 128 lanes and measured ~3 ms/frame of padded fma traffic at 123K
-    triangles. Returns ((px, py, pz), (nx, ny, nz)), each (3, T): plane k
+    The corner-plane twin of transform_triangles: every output keeps T in
+    the minor dim (corner-major rows), so the whole transform is dense fma
+    work over contiguous triangle rows, instead of a (T, 3, 3) formulation
+    with a 3-wide minor dim. Returns ((px, py, pz), (nx, ny, nz)), each (3, T): plane k
     holds corner k's component for every triangle. Instance matrices
     arrive via blocked broadcast segments when the scene is blocked
     (_blocked_segments), else one transposed row gather."""
@@ -482,7 +482,7 @@ def transform_triangle_planes(scene: Dict[str, Array],
         rows_t = (jnp.concatenate(parts, axis=1)
                   if len(parts) > 1 else parts[0])        # (12, T)
     else:
-        rows_t = packed_t[:, ti]                          # lane gather
+        rows_t = packed_t[:, ti]                          # column gather
     lp = scene["tri_pos_local_t"]                         # (3comp, 3crn, T)
     ln = scene["tri_nrm_local_t"]
     r = lambda j: rows_t[j][None, :]                      # (1, T)
@@ -508,8 +508,8 @@ def transform_triangles(scene: Dict[str, Array],
     (tri_world (T, 3, 3), tri_nrm (T, 3, 3)). Use for pipelines that only
     consume triangle-level data (the fused-raster deferred path): it
     replaces transform_vertices' vertex transform plus the two
-    `x[indices]` corner gathers, which together cost ~3 ms/frame at 123K
-    triangles (TPU gathers price per row; corners are 3 rows/triangle).
+    `x[indices]` corner gathers (gathers price per row; corners are 3
+    rows/triangle).
 
     tri_instance_np: optional HOST copy of scene["tri_instance"] — when
     the scene's triangles are contiguous uniform blocks per instance
@@ -550,13 +550,13 @@ def transform_vertices(scene: Dict[str, Array], inst_matrices: Array) -> Tuple[A
 
     inst_matrices: (I, 4, 4). Returns (world positions (V,3), world normals
     (V,3)). The per-thread model-matrix bake of mesh.cpp:444-509 becomes one
-    gather + batched matmul (MXU work).
+    gather + batched transform.
     """
     vi = jnp.maximum(scene["vert_instance"], 0)
     # pack the matrices as contiguous 12-float rows FIRST (I is small), so
     # the per-vertex gather is one contiguous row and the column slices
     # don't force layout copies; the explicit column arithmetic keeps the
-    # work on the VPU (the batched 3x3 dot_general runs at ~8 GB/s)
+    # work elementwise (a batched 3x3 dot_general is low-intensity)
     packed = jnp.concatenate(
         [inst_matrices[:, :3, 0], inst_matrices[:, :3, 1],
          inst_matrices[:, :3, 2], inst_matrices[:, :3, 3]], axis=-1)  # (I,12)

@@ -8,70 +8,23 @@ composite blends over the opaque HDR. No sorting needed — the weight
 function handles ordering approximately, which is why the reference pairs
 it with back-to-front sorted translucency only for refractive cases.
 
-The Pallas kernel mirrors the visibility raster but accumulates instead of
+The plain-XLA raster mirrors the sorted blend but accumulates instead of
 depth-testing (translucents never write depth, they test against the opaque
-depth buffer).
+depth buffer). The sums and the reveal product do not depend on order, so
+there is no kernel: one loop over list slots with every tile's pixels in one
+array.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Tuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from garden_tpu.render import raster
 
 Array = jnp.ndarray
-
-
-def _oit_kernel(count_ref, data_ref, opaque_depth_ref,
-                acc_r_ref, acc_g_ref, acc_b_ref, acc_w_ref, reveal_ref,
-                *, tile: int, tiles_x: int):
-    ty = pl.program_id(0)
-    tx = pl.program_id(1)
-    tile_idx = ty * tiles_x + tx
-    # tpu.iota must be integer-typed; cast after
-    ix = jax.lax.broadcasted_iota(jnp.int32, (tile, tile), 1).astype(jnp.float32)
-    iy = jax.lax.broadcasted_iota(jnp.int32, (tile, tile), 0).astype(jnp.float32)
-    px = (tx * tile + 0.5) + ix
-    py = (ty * tile + 0.5) + iy
-
-    acc_r_ref[:] = jnp.zeros((tile, tile), jnp.float32)
-    acc_g_ref[:] = jnp.zeros((tile, tile), jnp.float32)
-    acc_b_ref[:] = jnp.zeros((tile, tile), jnp.float32)
-    acc_w_ref[:] = jnp.zeros((tile, tile), jnp.float32)
-    reveal_ref[:] = jnp.ones((tile, tile), jnp.float32)
-
-    def body(c, _):
-        d = data_ref[0, c]  # (16,)
-        x0, y0, x1, y1, x2, y2 = d[0], d[1], d[2], d[3], d[4], d[5]
-        z0, z1, z2, inv_area = d[6], d[7], d[8], d[9]
-        cr, cg, cb, alpha = d[10], d[11], d[12], d[13]
-        e0 = (px - x1) * (y2 - y1) - (py - y1) * (x2 - x1)
-        e1 = (px - x2) * (y0 - y2) - (py - y2) * (x0 - x2)
-        e2 = (px - x0) * (y1 - y0) - (py - y0) * (x1 - x0)
-        inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)
-        b0 = e0 * inv_area
-        b1 = e1 * inv_area
-        b2 = e2 * inv_area
-        z = b0 * z0 + b1 * z1 + b2 * z2
-        # visible if in front of the opaque surface (reverse-Z)
-        vis = inside & (z >= opaque_depth_ref[:]) & (z <= 1.0)
-        # McGuire depth weight (oit.frag): nearer (larger reverse-Z) heavier
-        wgt = jnp.clip(z * z * 10.0 + 0.01, 0.01, 30.0) * alpha
-        wv = jnp.where(vis, wgt, 0.0)
-        acc_r_ref[:] = acc_r_ref[:] + cr * wv
-        acc_g_ref[:] = acc_g_ref[:] + cg * wv
-        acc_b_ref[:] = acc_b_ref[:] + cb * wv
-        acc_w_ref[:] = acc_w_ref[:] + wv
-        reveal_ref[:] = reveal_ref[:] * jnp.where(vis, 1.0 - alpha, 1.0)
-        return 0
-
-    jax.lax.fori_loop(0, count_ref[tile_idx, 0], body, 0)
 
 
 def rasterize_oit(
@@ -83,15 +36,12 @@ def rasterize_oit(
     width: int,
     height: int,
     tile: int,
+    tile_h: int = None,
 ) -> Tuple[Array, Array]:
-    """Returns (accum (H, W, 4), reveal (H, W))."""
-    tiles_x = -(-width // tile)
-    tiles_y = -(-height // tile)
-    n_tiles = tiles_x * tiles_y
-    c = tile_tris.shape[1]
-
-    # pack records densely FIRST, fetch with one row gather (field-wise
-    # gathers and per-column slices both cost ~10x more on TPU)
+    """Returns (accum (H, W, 4), reveal (H, W)). tile_tris/counts are one
+    flat list per tile (raster.merge_big_list)."""
+    th = tile_h or tile
+    # pack records densely FIRST, fetch with one row gather
     t_count = setup["valid"].shape[0]
     sx, sy, z = setup["sx"], setup["sy"], setup["z"]    # (3, T) corner-major
     xy = jnp.stack([sx[0], sy[0], sx[1], sy[1], sx[2], sy[2]], axis=-1)
@@ -105,37 +55,39 @@ def rasterize_oit(
     # nothing (mapping holes to record 0 double-counted triangle 0)
     records = jnp.concatenate(
         [records, jnp.zeros((1, 16), jnp.float32)], axis=0)
-    data = records[jnp.where(tile_tris >= 0, tile_tris, t_count)]
+    live = jnp.arange(tile_tris.shape[1])[None, :] < counts[:, None]
+    data = records[jnp.where(live & (tile_tris >= 0), tile_tris, t_count)]
 
-    h_pad = tiles_y * tile
-    w_pad = tiles_x * tile
-    pad_depth = jnp.pad(opaque_depth,
-                        ((0, h_pad - height), (0, w_pad - width)),
-                        constant_values=2.0)
-    counts2d = counts.reshape(n_tiles, 1)
-    out_block = pl.BlockSpec((tile, tile), lambda ty, tx: (ty, tx),
-                             memory_space=pltpu.VMEM)
+    px, py = raster.tiled_pixel_centres(width, height, tile, th)
+    opaque = raster.image_to_tiles(opaque_depth, tile, th, fill=2.0)
 
-    outs = pl.pallas_call(
-        functools.partial(_oit_kernel, tile=tile, tiles_x=tiles_x),
-        grid=(tiles_y, tiles_x),
-        in_specs=[
-            pl.BlockSpec((n_tiles, 1), lambda ty, tx: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, c, 16), lambda ty, tx, _tx=tiles_x: (ty * _tx + tx, 0, 0),
-                         memory_space=pltpu.VMEM),
-            out_block,
-        ],
-        out_specs=(out_block,) * 5,
-        out_shape=tuple(
-            jax.ShapeDtypeStruct((h_pad, w_pad), jnp.float32) for _ in range(5)
-        ),
-        interpret=raster._interpret(),
-    )(counts2d, data, pad_depth)
+    def body(s, carry):
+        acc, reveal = carry
+        d = jax.lax.dynamic_index_in_dim(data, s, axis=1, keepdims=False)
+        f = lambda k: d[:, k:k + 1]                      # (tiles, 1)
+        x0, y0, x1, y1, x2, y2 = (f(k) for k in range(6))
+        e0 = (px - x1) * (y2 - y1) - (py - y1) * (x2 - x1)
+        e1 = (px - x2) * (y0 - y2) - (py - y2) * (x0 - x2)
+        e2 = (px - x0) * (y1 - y0) - (py - y0) * (x1 - x0)
+        inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)
+        zp = (e0 * f(9)) * f(6) + (e1 * f(9)) * f(7) + (e2 * f(9)) * f(8)
+        # visible if in front of the opaque surface (reverse-Z)
+        vis = inside & (zp >= opaque) & (zp <= 1.0)
+        alpha = f(13)
+        # McGuire depth weight (oit.frag): nearer (larger reverse-Z) heavier
+        wv = jnp.where(vis, jnp.clip(zp * zp * 10.0 + 0.01, 0.01, 30.0)
+                       * alpha, 0.0)
+        rgbw = jnp.concatenate([d[:, None, 10:13], jnp.ones_like(
+            d[:, None, 0:1])], axis=-1)                  # (tiles, 1, 4)
+        return (acc + rgbw * wv[..., None],
+                reveal * jnp.where(vis, 1.0 - alpha, 1.0))
 
-    acc_r, acc_g, acc_b, acc_w, reveal = outs
-    accum = jnp.stack([acc_r, acc_g, acc_b, acc_w], axis=-1)
-    return accum[:height, :width], reveal[:height, :width]
+    n_px = px.shape[1]
+    acc = jnp.zeros((px.shape[0], n_px, 4), jnp.float32)
+    reveal = jnp.ones((px.shape[0], n_px), jnp.float32)
+    acc, reveal = jax.lax.fori_loop(0, data.shape[1], body, (acc, reveal))
+    return (raster.tiles_to_image(acc, width, height, tile, th),
+            raster.tiles_to_image(reveal, width, height, tile, th))
 
 
 def composite(hdr_opaque: Array, accum: Array, reveal: Array) -> Array:

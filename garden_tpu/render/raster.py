@@ -1,6 +1,6 @@
-"""Software rasterization: triangle setup, tile binning, Pallas raster kernel.
+"""Software rasterization: triangle setup, tile binning, Triton raster kernels.
 
-The TPU replacement for the reference's hardware raster draw path
+The replacement for the reference's hardware raster draw path
 (MeshRenderSystem's DrawIndexed commands into the G-buffer render pass,
 mesh.cpp:556-719 + VulkanCommandBuffer replay). Architecture (CuRast-style
 tiled software raster, see PAPERS.md):
@@ -13,16 +13,18 @@ tiled software raster, see PAPERS.md):
    bigger footprint go to a small 'big list' SHARED by every tile (one
    extra kernel block, drawn first) — fixed capacities everywhere,
    overflow drops triangles (back-to-front artifacts only, never OOM).
-3. `rasterize_visibility` (Pallas, grid = screen tiles): each tile loops its
-   binned triangles (dynamic trip count), evaluates edge functions over the
-   whole tile vectorized on the VPU, and keeps the nearest hit per pixel:
-   a visibility buffer of (tri id, barycentrics, depth). Shading is
-   deferred to a separate gather pass (render/gbuffer.py) so raster work is
-   independent of material cost.
+3. `rasterize_visibility` (Pallas through Triton, one program per
+   sub-block of a screen tile): each program loops its tile's binned
+   triangles (dynamic trip count), evaluates edge functions over its
+   pixels, and keeps the nearest hit per pixel: a visibility buffer of
+   (tri id, barycentrics, depth). Shading is deferred to a separate gather
+   pass (render/gbuffer.py) so raster work is independent of material cost.
 
 The visibility buffer replaces the reference's G-buffer *raster* stage; the
 G-buffer itself is reconstructed in gbuffer.py. Depth-only rasterization for
-shadow maps reuses the same kernel with a trivial output spec.
+shadow maps (`rasterize_depth`) is the same loop with a max-reduce. Each
+kernel has a plain-XLA twin (`*_reference`) that evaluates every slot of
+every tile; the ordered blend is plain XLA only.
 """
 
 from __future__ import annotations
@@ -34,9 +36,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from garden_tpu.core import math3d as m3
 from garden_tpu.ops.segments import run_edges as _run_edges
 
 Array = jnp.ndarray
@@ -46,25 +47,15 @@ NEAR_EPS = 1e-6
 
 
 def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
-
-
-def tpu_tile_legal(tile: int, width: int, height: int,
-                   tile_h: int = None) -> bool:
-    """Whether a raster tile layout lowers on TPU: a non-full output block's
-    last dim must be a multiple of 128 lanes and its second-minor dim a
-    multiple of 8 sublanes (the constraint that broke round-1's entry():
-    tile_size=32 at 128px width fails Pallas lowering).
-
-    RECTANGULAR tiles: tile is the width (>= 128 lanes), tile_h the height.
-    Small triangles waste VPU lanes quadratically with tile area — a ~20px
-    caster covers <3% of a 128x128 tile's 16384 lanes but ~20% of a
-    (16, 128) tile's 2048 — so short-wide tiles are the natural TPU shape
-    (measured: CSM cascade kernel 8.6 -> ~2.5 ms on the dense pile)."""
-    th = tile_h or tile
-    tiles_x = -(-width // tile)
-    tiles_y = -(-height // th)
-    return tiles_x * tiles_y <= 1 or (tile % 128 == 0 and th % 8 == 0)
+    """Pallas kernels compile for the GPU through Triton; on the CPU (the
+    test host) they run in the Pallas interpreter. Any other backend has
+    no route and is an error, never a silent interpreter run."""
+    backend = jax.default_backend()
+    if backend == "cpu":
+        return True
+    if backend == "gpu":
+        return False
+    raise RuntimeError(f"no Pallas raster route for backend {backend!r}")
 
 
 def setup_triangles(
@@ -87,9 +78,9 @@ def setup_triangles_tv(
     """Screen-space triangle setup from pre-gathered triangle vertices.
 
     Multi-pass renderers (main + shadow cascades) should gather world-space
-    triangle vertices ONCE and transform per pass — each per-pass
-    clip[indices] gather costs ~1.5ms at 123K triangles on TPU. Prefer
-    setup_triangles_planes for corner-major clip components."""
+    triangle vertices ONCE and transform per pass instead of gathering
+    clip[indices] per pass. Prefer setup_triangles_planes for corner-major
+    clip components."""
     comps = tuple(jnp.transpose(v[..., i]) for i in range(4))   # (3, T) x4
     return setup_triangles_planes(*comps, tri_valid, width, height)
 
@@ -105,11 +96,9 @@ def setup_triangles_planes(
 ) -> Dict[str, Array]:
     """Screen-space setup from PER-COMPONENT clip planes.
 
-    The 2-D per-corner fields (sx/sy/z/inv_w) keep T in the 128-lane
-    MINOR dim: the (T, 3)-oriented formulation this replaces put the
-    3-corner axis minor, which tiles to 128 lanes (42x padding) on every
-    elementwise op — the round-4 trace charged ~3 ms/frame of xform/setup
-    fma time to exactly that (ARCHITECTURE.md round-5 notes)."""
+    The 2-D per-corner fields (sx/sy/z/inv_w) keep T in the minor dim,
+    so every elementwise op runs over contiguous triangle rows instead of
+    a 3-wide corner axis."""
     # conservative near clip: reject triangles with any vertex behind the
     # near plane (finely tessellated scenes make this loss negligible)
     in_front = jnp.all(cw > NEAR_EPS, axis=0)
@@ -156,18 +145,16 @@ def bin_triangles(
     foot: int = None,
     tile_h: int = None,
     foot_y: int = None,
-    max_active: int = None,
 ) -> Tuple[Array, ...]:
     """Returns (tile_tris (tiles, max_per_tile) int32 padded with -1,
     counts (tiles,) int32, big_list (max_big,) int32 padded with -1).
     tiles = tiles_y * tiles_x, row-major.
 
     Triangles whose tile footprint exceeds foot x foot_y go to the SHARED
-    big list, which raster kernels receive as one (B, 16) block per grid
-    point instead of a per-tile prefix: broadcasting B big slots into every
-    tile's record fetch doubled the (tiles, C, 16) gather on mostly-empty
-    targets like the cascade atlas (measured ~2.3 ms/frame at 4K tiles).
-    Kernels draw the big block FIRST, so bin order = big, then grid.
+    big list, which raster kernels read as one (B, 16) block instead of a
+    per-tile prefix, so mostly-empty targets like the cascade atlas do not
+    gather B big slots into every tile's records. Kernels draw the big
+    block FIRST, so bin order = big, then grid.
 
     priority: optional int32[T] ordering key — entries within a tile come
     out sorted by ascending priority instead of triangle id (the
@@ -178,20 +165,13 @@ def bin_triangles(
     rides as 4 extra bits inside the packed binning sort, so tile entries
     come out bucket-ordered with NO argsort, NO inverse-permutation
     scatter and NO per-tile remap gather (the exact `priority` path costs
-    all three, ~2 ms at 123K triangles). Right for order-as-a-HEURISTIC
+    all three). Right for order-as-a-HEURISTIC
     uses — the opaque front-to-back overflow-drop policy — not for
     correctness-ordered blending. Mutually exclusive with `priority`.
 
-    tile_h: rectangular tiles (tile wide, tile_h tall; see tpu_tile_legal).
+    tile_h: rectangular tiles (tile wide, tile_h tall; see tile_layout_ok).
     foot_y: y-footprint for short tiles (defaults to foot scaled so the
-    covered pixel span matches the x span).
-
-    max_active: COMPACTED output for sparse targets — returns a 4-tuple
-    (tile_tris (A, C), counts (A,), big_list, act_ids (A,)) holding only
-    the A most-populated tiles' lists (A = max_active), so the per-tile
-    list fetch scales with occupancy instead of tile count. Consume with
-    rasterize_depth(act_ids=...). Incompatible with `priority` (the
-    inverse-permutation remap assumes dense rows)."""
+    covered pixel span matches the x span)."""
     FOOT = foot if foot is not None else globals()["FOOT"]
     th = tile_h or tile
     FOOT_Y = foot_y if foot_y is not None else FOOT
@@ -209,11 +189,9 @@ def bin_triangles(
     small = setup["valid"] & (nx <= FOOT) & (ny <= FOOT_Y)
     big = setup["valid"] & ~small
 
-    # (tri, k) pair emission for small triangles
-    # pair emission in (K, T) orientation: T in the MINOR dim keeps every
-    # emission op lane-dense (the (T, K) layout puts K=4 in the 128-lane
-    # minor dim — measured ~1 ms of padded-fusion traffic at 3x123K
-    # cascade triangles). Pair order changes, the sort canonicalizes it.
+    # (tri, k) pair emission for small triangles, in (K, T) orientation:
+    # T in the minor dim keeps every emission op over contiguous triangle
+    # rows. Pair order changes, the sort canonicalizes it.
     k = jnp.arange(FOOT * FOOT_Y, dtype=jnp.int32)
     kx = k % FOOT
     ky = k // FOOT
@@ -224,8 +202,8 @@ def bin_triangles(
     # THREE key classes: tile keys, then a reserved BIG key (n_tiles) for
     # every slot of a big triangle, then the sentinel (n_tiles + 1). Big
     # triangles ride the SAME sort as a contiguous run of K identical
-    # copies each — the big list falls out of the run by striding, killing
-    # the separate (T,)-wide top_k selection (~0.4 ms on the cascade pass)
+    # copies each — the big list falls out of the run by striding, with no
+    # separate (T,)-wide top_k selection
     key = jnp.where(pair_ok, pty * tiles_x + ptx,
                     jnp.where(big[None, :], n_tiles, n_tiles + 1))
     key = key.reshape(-1)
@@ -234,9 +212,8 @@ def bin_triangles(
     ).reshape(-1)
 
     # ONE single-operand sort of (key << bits | payload): applying an
-    # argsort permutation is two 2M-element random gathers (~60ms at 123K
-    # tris on TPU, the round-1 frame's hottest single cost); the packed sort
-    # gets key and payload ordered together for the sort's own ~4ms
+    # argsort permutation would be two pair-count random gathers; the
+    # packed sort gets key and payload ordered together
     if priority is None:
         payload = tri_of_pair
     else:  # emission is per-triangle-row: broadcast, don't gather
@@ -269,34 +246,16 @@ def bin_triangles(
     # queries are consecutive, so side-right(i) == side-left(i+1) — ONE
     # edge table of n_tiles+1 probes replaces the left+right pair, built
     # by _run_edges' dense two-level count (jnp.searchsorted lowers to a
-    # while-loop binary search whose ~21 iterations are each a separate
-    # serial dispatch: 0.92 ms/frame on the cascade atlas in the round-5
-    # trace; the dense count is 4 fused ops)
+    # while-loop binary search of ~21 serial steps; the dense count is a
+    # few fused ops)
     edges = _run_edges(key_sorted, n_tiles + 2)
     start = edges[:n_tiles]
     end = edges[1:n_tiles + 1]
     big_run = (edges[n_tiles], edges[n_tiles + 1])
-    if max_active is not None:
-        # compact BEFORE the list gather: only the A most-populated tiles'
-        # runs are fetched from the sorted pair array. Selection via ONE
-        # packed descending sort of (count | tile) — lax.top_k over the
-        # tile axis measured ~0.2 ms slower at 3K tiles
-        assert priority is None, "max_active and priority are exclusive"
-        a = min(max_active, n_tiles)
-        bits_t = max(int(np.ceil(np.log2(n_tiles + 1))), 1)
-        cnt_c = jnp.minimum(end - start, (1 << (30 - bits_t)) - 1)
-        packed_a = jnp.sort(
-            (cnt_c << bits_t) | jnp.arange(n_tiles, dtype=jnp.int32))
-        act_ids = (packed_a[::-1][:a] & ((1 << bits_t) - 1)).astype(jnp.int32)
-        start = start[act_ids]
-        end = end[act_ids]
     take = jnp.arange(max_per_tile, dtype=jnp.int32)
     gather = start[:, None] + take[None, :]
     ok = gather < end[:, None]
     gather = jnp.clip(gather, 0, key.shape[0] - 1)
-    # NOTE: a vmapped dynamic_slice (one C-lane slice per tile) was tried
-    # here and lowered to ~510 separate 1 us gathers — slower than this
-    # single element gather (round-5 trace)
     tile_pay = pay_sorted[gather]                      # (tiles, C) small gather
     if priority is not None:
         # invert the priority permutation at tile-list granularity only
@@ -321,8 +280,6 @@ def bin_triangles(
         big_pay = inv[jnp.clip(big_pay, 0, t - 1)]
     big_list = jnp.where(jnp.arange(max_big) < big_cnt,
                          big_pay.astype(jnp.int32), -1)      # (B,)
-    if max_active is not None:
-        return tile_tris, counts, big_list, act_ids
     return tile_tris, counts, big_list
 
 
@@ -334,7 +291,6 @@ def bin_triangles_corner(
     max_per_tile: int,
     max_big: int = 64,
     tile_h: int = None,
-    max_active: int = None,
 ) -> Tuple[Array, ...]:
     """bin_triangles for ORDER-FREE consumers (depth-only raster), at a
     quarter of the sort cost: each small triangle is sorted ONCE by its
@@ -347,11 +303,10 @@ def bin_triangles_corner(
     shared big list exactly as in bin_triangles. Entries come out in
     (run, id) order — NOT globally id-sorted — which is only legal for
     consumers that reduce per pixel order-independently (rasterize_depth's
-    max). The cascade-atlas binning sort was 2.2 ms/frame at 1.48M slot
-    copies (round-5 trace); this sorts 370K.
+    max). On the flagship cascade atlas it sorts a quarter of the 1.48M
+    slot copies.
 
-    Returns the same tuple shapes as bin_triangles (incl. the
-    max_active compacted form)."""
+    Returns the same tuple shapes as bin_triangles."""
     th = tile_h or tile
     tiles_x = -(-width // tile)
     tiles_y = -(-height // th)
@@ -404,23 +359,6 @@ def bin_triangles_corner(
     s2, l2 = run(tiles_x, row0)
     s3, l3 = run(tiles_x + 1, row0 | col0)
 
-    if max_active is not None:
-        # activity by candidate upper bound (coverage filtering happens
-        # after the fetch; an overestimate only costs a wasted slot row)
-        a = min(max_active, n_tiles)
-        cnt_ub = l0 + l1 + l2 + l3
-        bits_t = max(int(np.ceil(np.log2(n_tiles + 1))), 1)
-        cnt_c = jnp.minimum(cnt_ub, (1 << (30 - bits_t)) - 1)
-        packed_a = jnp.sort(
-            (cnt_c << bits_t) | jnp.arange(n_tiles, dtype=jnp.int32))
-        act_ids = (packed_a[::-1][:a] & ((1 << bits_t) - 1)).astype(jnp.int32)
-        pick = lambda x: x[act_ids]
-        s0, l0, s1, l1 = pick(s0), pick(l0), pick(s1), pick(l1)
-        s2, l2, s3, l3 = pick(s2), pick(l2), pick(s3), pick(l3)
-        rows = a
-    else:
-        rows = n_tiles
-
     # slot j of a tile's list walks the concatenation of the 4 runs:
     # dense 4-way select of (source position, required-footprint bits)
     c1 = l0 + l1
@@ -437,14 +375,14 @@ def bin_triangles_corner(
                   jnp.where(in2, s2[:, None] + (j - c1[:, None]),
                             s3[:, None] + (j - c2[:, None]))))
     any_run = in0 | in1 | in2 | in3
-    pay = pay_sorted[jnp.clip(src, 0, t - 1)]                # (rows, C)
+    pay = pay_sorted[jnp.clip(src, 0, t - 1)]                # (tiles, C)
 
     # coverage filter: an entry fetched from the left/up/up-left run only
     # covers this tile if its footprint extends right/down; footprint bits
     # ride a tiny (T,) side table fetched by the same indices
     fp = ((nx > 1).astype(jnp.int32)
           | ((ny > 1).astype(jnp.int32) << 1))               # (T,)
-    fpe = fp[jnp.clip(pay, 0, t - 1)]                        # (rows, C)
+    fpe = fp[jnp.clip(pay, 0, t - 1)]                        # (tiles, C)
     need = (jnp.where(in1 | in3, 1, 0) | jnp.where(in2 | in3, 2, 0))
     covered = any_run & ((fpe & need) == need)
 
@@ -461,78 +399,7 @@ def bin_triangles_corner(
     big_pay = pay_sorted[jnp.clip(pos, 0, t - 1)]
     big_list = jnp.where(jnp.arange(max_big) < big_cnt,
                          big_pay.astype(jnp.int32), -1)
-    if max_active is not None:
-        return tile_tris, counts, big_list, act_ids
     return tile_tris, counts, big_list
-
-
-def bin_big_supertiles(
-    setup: Dict[str, Array],
-    big_list: Array,        # (B,) triangle ids, -1 padded (bin_triangles)
-    width: int,
-    height: int,
-    tile: int,
-    tile_h: int,
-    sup_x: int,
-    sup_y: int,
-    cap: int,
-) -> Tuple[Array, Array, Tuple[int, int, int]]:
-    """Per-SUPER-tile big lists: (sup_tris (n_sup, cap), sup_counts (n_sup,),
-    (sup_x, sup_y, sups_x)).
-
-    The shared global big list makes EVERY tile raster every big triangle —
-    on the 3072-tile cascade atlas that was ~90% of the depth-kernel work
-    (3072 x 64 (tri, tile) pairs for ~200 actually-covered pairs). Here the
-    big candidates (already compacted to B entries by bin_triangles' top_k)
-    are binned once more onto a coarse grid of sup_x x sup_y tiles
-    (e.g. 512 x 128 px), with NO footprint limit: a big triangle emits a
-    slot for every super-tile its bbox overlaps (B x n_sup is tiny — a few
-    thousand pairs), so nothing ever falls back to a global list. Raster
-    kernels then draw only their own super-tile's big block."""
-    th = tile_h or tile
-    tiles_x = -(-width // tile)
-    tiles_y = -(-height // th)
-    sups_x = -(-tiles_x // sup_x)
-    sups_y = -(-tiles_y // sup_y)
-    n_sup = sups_x * sups_y
-    spw = float(tile * sup_x)
-    sph = float(th * sup_y)
-    t = setup["valid"].shape[0]
-    b = big_list.shape[0]
-
-    safe = jnp.clip(big_list, 0, t - 1)
-    ok = big_list >= 0
-    x0 = setup["xmin"][safe]
-    x1 = setup["xmax"][safe]
-    y0 = setup["ymin"][safe]
-    y1 = setup["ymax"][safe]
-    s = jnp.arange(n_sup, dtype=jnp.int32)
-    sx0 = ((s % sups_x).astype(jnp.float32)) * spw
-    sy0 = ((s // sups_x).astype(jnp.float32)) * sph
-    hit = (ok[:, None]
-           & (x1[:, None] >= sx0[None, :]) & (x0[:, None] < sx0[None, :] + spw)
-           & (y1[:, None] >= sy0[None, :]) & (y0[:, None] < sy0[None, :] + sph))
-    key = jnp.where(hit, s[None, :], n_sup).reshape(-1)
-    payload = jnp.broadcast_to(safe.astype(jnp.int32)[:, None],
-                               (b, n_sup)).reshape(-1)
-    tri_bits = max(int(np.ceil(np.log2(max(t, 2)))), 1)
-    key_bits = max(int(np.ceil(np.log2(n_sup + 2))), 1)
-    if tri_bits + key_bits <= 31:
-        packed = jnp.sort((key << tri_bits) | payload)
-        key_sorted = packed >> tri_bits
-        pay_sorted = packed & ((1 << tri_bits) - 1)
-    else:
-        key_sorted, pay_sorted = jax.lax.sort((key, payload), num_keys=1)
-    edges = _run_edges(key_sorted, n_sup + 1)
-    start = edges[:-1]
-    end = edges[1:]
-    take = jnp.arange(cap, dtype=jnp.int32)
-    gather = start[:, None] + take[None, :]
-    in_range = gather < end[:, None]
-    gather = jnp.clip(gather, 0, key.shape[0] - 1)
-    sup_tris = jnp.where(in_range, pay_sorted[gather], -1)
-    sup_counts = jnp.minimum(end - start, cap).astype(jnp.int32)
-    return sup_tris, sup_counts, (sup_x, sup_y, sups_x)
 
 
 def merge_big_list(tile_tris: Array, counts: Array,
@@ -549,8 +416,6 @@ def merge_big_list(tile_tris: Array, counts: Array,
     return merged, merged_counts
 
 
-
-
 def _pack_edge_records(setup: Dict[str, Array],
                        tri_atlas: Array = None) -> Array:
     """(T + 1, 16) per-triangle records in edge-COEFFICIENT form:
@@ -559,22 +424,16 @@ def _pack_edge_records(setup: Dict[str, Array],
 
     e_k(px, py) = a_k*px + b_k*py + c_k, and e0+e1+e2 = S (= -area,
     positive for front faces), so the raster inner loop is 2 FMAs per edge
-    plus one subtraction for e2 — about half the per-(triangle, pixel) VPU
-    work of evaluating the three edge determinants from vertex positions
-    (the raster kernels are VPU-compute-bound; measured ~2x on cascade-
-    saturated tiles). Built with whole-(T,3) column math (rolls), since
-    per-column slices of (T,3) arrays force layout copies on TPU.
+    plus one subtraction for e2 — about half the per-(triangle, pixel)
+    work of evaluating the three edge determinants from vertex positions.
 
     Row i carries its own id i in slot 14 (exact in f32 for ids < 2^24)
     and row T is a SENTINEL (id -1, inv_area 0): empty tile-list slots
-    index the sentinel, so the per-tile fetch `records[safe]` needs no
-    post-gather `.at[...].set` rewrite (a full-copy scatter that cost
-    ~1.5 ms/frame on the cascade atlas).
+    index the sentinel and rasterize nothing.
 
-    Inputs are corner-major (3, T) planes (setup_triangles_planes): the
-    coefficient math runs lane-dense on T-minor rows; only the final
-    record stack materializes the (T, 16) row layout the per-tile gather
-    needs."""
+    Inputs are corner-major (3, T) planes (setup_triangles_planes); only
+    the final record stack materializes the (T, 16) row layout the
+    per-tile gather needs."""
     sx, sy, z = setup["sx"], setup["sy"], setup["z"]      # (3, T)
     a, b, c = [], [], []
     for k in range(3):
@@ -602,108 +461,291 @@ def _safe_ids(tile_tris: Array, t_count: int) -> Array:
     return jnp.where(tile_tris >= 0, tile_tris, t_count)
 
 
-TRI_BLOCK = 16  # triangles per kernel iteration (sublane batch; 16 amortizes
-# loop overhead further and still fits VMEM at 128px tiles)
+# -- tile geometry shared by the kernels and the plain forms ----------------
 
-
-def _raster_kernel(count_ref, bigcnt_ref, data_ref, big_ref, depth_ref,
-                   id_ref, b0_ref, b1_ref,
-                   *, tile: int, tiles_x: int, tile_h: int = None):
-    """Visibility raster, TRI_BLOCK triangles per iteration.
-
-    Pixels live flattened in the lane axis as (1, tile*tile); each iteration
-    loads a (B, 16) record block, evaluates edge functions for all B
-    triangles as (B, tile*tile) VPU ops, tournament-reduces them to the
-    per-pixel nearest candidate, and merges once into the running buffers.
-    Scalar loads and loop management amortize Bx vs the per-triangle loop
-    (measured ~14x overhead in that form).
-
-    Two loops: the SHARED big-triangle block (big_ref, same for every grid
-    point — no per-tile gather) first, then the tile's own grid list."""
+def tiled_pixel_centres(width: int, height: int, tile: int,
+                        tile_h: int = None) -> Tuple[Array, Array]:
+    """(px, py), each (tiles, th * tile): pixel centres of every bin tile,
+    row-major within the tile, tiles row-major over the padded frame."""
     th = tile_h or tile
-    ty = pl.program_id(0)
-    tx = pl.program_id(1)
-    tile_idx = ty * tiles_x + tx
-    n_px = th * tile
-    # tpu.iota must be integer-typed; cast after
-    ixf = jax.lax.broadcasted_iota(jnp.int32, (1, n_px), 1)
-    col = (ixf % tile).astype(jnp.float32)
-    row = (ixf // tile).astype(jnp.float32)
-    px = (tx * tile + 0.5) + col            # (1, n_px)
-    py = (ty * th + 0.5) + row
+    tiles_x = -(-width // tile)
+    tiles_y = -(-height // th)
+    col = jnp.arange(tile, dtype=jnp.int32)
+    row = jnp.arange(th, dtype=jnp.int32)
+    tx = jnp.arange(tiles_x, dtype=jnp.int32)
+    ty = jnp.arange(tiles_y, dtype=jnp.int32)
+    shape = (tiles_y, tiles_x, th, tile)
+    px = jnp.broadcast_to(
+        (tx[None, :, None, None] * tile + col[None, None, None, :]), shape)
+    py = jnp.broadcast_to(
+        (ty[:, None, None, None] * th + row[None, None, :, None]), shape)
+    n = tiles_x * tiles_y
+    return (px.reshape(n, th * tile).astype(jnp.float32) + 0.5,
+            py.reshape(n, th * tile).astype(jnp.float32) + 0.5)
 
-    depth_ref[:] = jnp.zeros((th, tile), jnp.float32)
-    id_ref[:] = jnp.full((th, tile), -1, jnp.int32)
-    b0_ref[:] = jnp.zeros((th, tile), jnp.float32)
-    b1_ref[:] = jnp.zeros((th, tile), jnp.float32)
 
-    def process(d):
-        # edge-coefficient records (_pack_edge_records): e = a*px + b*py + c
-        e0 = d[:, 0:1] * px + d[:, 3:4] * py + d[:, 6:7]
-        e1 = d[:, 1:2] * px + d[:, 4:5] * py + d[:, 7:8]
-        e2 = d[:, 9:10] - e0 - e1            # e0+e1+e2 = S (= -area)
-        inv_area = d[:, 13:14]
-        tri_id = d[:, 14:15]
-        inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)
-        b0 = e0 * inv_area
-        b1 = e1 * inv_area
-        z = d[:, 10:11] + b0 * d[:, 11:12] + b1 * d[:, 12:13]
-        # padded/invalid slots hit the sentinel record: z == 0, tri_id < 0
-        cand = inside & (z <= 1.0) & (z > 0.0) & (tri_id >= 0.0)
-        zc = jnp.where(cand, z, 0.0)
+def image_to_tiles(img: Array, tile: int, tile_h: int = None,
+                   fill: float = 0.0) -> Array:
+    """(H, W, ...) -> (tiles, th * tile, ...), padding the frame to whole
+    tiles with `fill`."""
+    th = tile_h or tile
+    h, w = img.shape[:2]
+    tiles_x = -(-w // tile)
+    tiles_y = -(-h // th)
+    rest = img.shape[2:]
+    pad = ((0, tiles_y * th - h), (0, tiles_x * tile - w)) + ((0, 0),) * len(rest)
+    img = jnp.pad(img, pad, constant_values=fill)
+    img = img.reshape((tiles_y, th, tiles_x, tile) + rest)
+    img = jnp.moveaxis(img, 2, 1)
+    return img.reshape((tiles_x * tiles_y, th * tile) + rest)
 
-        # tournament-reduce the B candidates to 1 per pixel
-        def merge(za, ia, ba, bb, zb, ib, b2a, b2b):
-            take_b = zb > za
-            return (jnp.where(take_b, zb, za), jnp.where(take_b, ib, ia),
-                    jnp.where(take_b, b2a, ba), jnp.where(take_b, b2b, bb))
 
-        zs, ids, b0s, b1s = zc, jnp.broadcast_to(tri_id, zc.shape), b0, b1
-        k = TRI_BLOCK
-        while k > 1:
-            h = k // 2
-            zs_a, zs_b = zs[:h], zs[h:k]
-            zs, ids, b0s, b1s = merge(
-                zs_a, ids[:h], b0s[:h], b1s[:h],
-                zs_b, ids[h:k], b0s[h:k], b1s[h:k])
-            k = h
+def tiles_to_image(t: Array, width: int, height: int, tile: int,
+                   tile_h: int = None) -> Array:
+    """Inverse of image_to_tiles, cropped to (height, width, ...)."""
+    th = tile_h or tile
+    tiles_x = -(-width // tile)
+    tiles_y = -(-height // th)
+    rest = t.shape[2:]
+    img = t.reshape((tiles_y, tiles_x, th, tile) + rest)
+    img = jnp.moveaxis(img, 1, 2)
+    img = img.reshape((tiles_y * th, tiles_x * tile) + rest)
+    return img[:height, :width]
 
-        z_new = zs.reshape(th, tile)
-        keep = z_new > depth_ref[:]
-        depth_ref[:] = jnp.where(keep, z_new, depth_ref[:])
-        id_ref[:] = jnp.where(keep, ids.reshape(th, tile).astype(jnp.int32),
-                              id_ref[:])
-        b0_ref[:] = jnp.where(keep, b0s.reshape(th, tile), b0_ref[:])
-        b1_ref[:] = jnp.where(keep, b1s.reshape(th, tile), b1_ref[:])
 
-    def body_big(cb, _):
-        process(big_ref[0, pl.ds(cb * TRI_BLOCK, TRI_BLOCK), :])
-        return 0
+def _grid_slots(tile_tris: Array, counts: Array) -> Array:
+    """Each tile's list with every slot at or past its count emptied."""
+    c = tile_tris.shape[1]
+    live = jnp.arange(c, dtype=jnp.int32)[None, :] < counts[:, None]
+    return jnp.where(live, tile_tris, -1)
 
-    def body(cb, _):
-        process(data_ref[0, pl.ds(cb * TRI_BLOCK, TRI_BLOCK), :])
-        return 0
 
-    nb_big = (bigcnt_ref[0, 0] + TRI_BLOCK - 1) // TRI_BLOCK
-    jax.lax.fori_loop(0, nb_big, body_big, 0)
-    n_blocks = (count_ref[0, tile_idx] + TRI_BLOCK - 1) // TRI_BLOCK
-    jax.lax.fori_loop(0, n_blocks, body, 0)
+def _slot_records(records: Array, tile_tris: Array, counts: Array,
+                  big_list: Array) -> Array:
+    """(tiles, B + C, 16): each tile's records in raster order — the
+    shared big list first, then the tile's own list; empty slots and
+    slots past the count hold the sentinel row."""
+    t_count = records.shape[0] - 1
+    n_tiles = tile_tris.shape[0]
+    big = jnp.broadcast_to(big_list[None, :], (n_tiles, big_list.shape[0]))
+    slots = jnp.concatenate([big, _grid_slots(tile_tris, counts)], axis=1)
+    return records[_safe_ids(slots, t_count)]
+
+
+def _atlas_rect(idx, atlas_bounds: tuple):
+    """Cascade-atlas clip rect (x0, x1, y0, y1) of atlas index `idx` (a
+    float, scalar or array): a short select chain over the static
+    `atlas_bounds` tuple (C is 2-4); an index outside it gets an empty
+    rect. Clipped geometry extending past its cascade's ortho bounds must
+    not bleed into a neighbour's atlas region."""
+    x0a = x1a = y0a = y1a = jnp.zeros_like(idx)
+    for ci, (x0, x1, y0, y1) in enumerate(atlas_bounds):
+        m = idx == float(ci)
+        x0a = jnp.where(m, float(x0), x0a)
+        x1a = jnp.where(m, float(x1), x1a)
+        y0a = jnp.where(m, float(y0), y0a)
+        y1a = jnp.where(m, float(y1), y1a)
+    return x0a, x1a, y0a, y1a
+
+
+def _in_rect(px, py, rect):
+    x0, x1, y0, y1 = rect
+    return (px >= x0) & (px < x1) & (py >= y0) & (py < y1)
+
+
+# -- Triton raster kernels ----------------------------------------------------
+#
+# A bin tile (tile wide, th tall) is cut into (bh, bw) sub-blocks of about
+# _BLOCK_PX pixels; one program rasterizes one sub-block (8 pixels per
+# thread at 4 warps, all state in registers) and walks its bin tile's list
+# TRI_STEP slots per loop iteration, with a data-dependent trip count read
+# from the tile's count. Programs run in no order, so every sub-block
+# reads its tile's list itself; neighbours re-read it from L2. Records are
+# gathered per tile in XLA first, so a slot's 16 floats are one 64-byte
+# line.
+
+_BLOCK_PX = 1024
+_NUM_WARPS = 4
+_NUM_STAGES = 2
+TRI_STEP = 8  # list slots per loop iteration (unrolled); early-z granularity
+
+
+def tile_layout_ok(tile: int, tile_h: int = None) -> bool:
+    """Whether a raster tile layout lowers through Triton: block
+    dimensions must be powers of two, so tile width and height must be.
+    The frame itself need not be a tile multiple (outputs pad and crop)."""
+    th = tile_h or tile
+    return all(v > 0 and v & (v - 1) == 0 for v in (tile, th))
+
+
+def _check_layout(fn: str, tile: int, th: int) -> None:
+    if not tile_layout_ok(tile, th):
+        raise ValueError(
+            f"{fn}: tile={tile}x{th} is not a power-of-two layout "
+            f"(Triton block dimensions are powers of two)")
+
+
+def _block_shape(tile: int, th: int) -> Tuple[int, int]:
+    bh = min(th, 32)
+    return bh, min(tile, max(_BLOCK_PX // bh, 1))
+
+
+def _pad_slots(tile_tris: Array) -> Array:
+    """Pad the slot axis to a TRI_STEP multiple with empty slots, so a
+    loop iteration never reads past the list."""
+    c = tile_tris.shape[-1]
+    pad = (-c) % TRI_STEP
+    if not pad:
+        return tile_tris
+    widths = ((0, 0),) * (tile_tris.ndim - 1) + ((0, pad),)
+    return jnp.pad(tile_tris, widths, constant_values=-1)
 
 
 def _big_inputs(records: Array, big_list: Array) -> Tuple[Array, Array]:
-    """(big_data (B_pad, 16), bigcnt (1, 1)) kernel inputs from the shared
-    big list; B pads to a TRI_BLOCK multiple, holes hit the sentinel row."""
+    """(big_data (B_pad, 16), big_n (1,)) kernel inputs from the shared big
+    list: B pads to a TRI_STEP multiple, holes hit the sentinel row, and
+    big_n covers every slot up to the last live entry."""
     t_count = records.shape[0] - 1
-    b = big_list.shape[0]
-    if b % TRI_BLOCK:
-        big_list = jnp.pad(big_list, (0, TRI_BLOCK - b % TRI_BLOCK),
-                           constant_values=-1)
-    big_data = records[_safe_ids(big_list, t_count)]        # (B_pad, 16)
-    bigcnt = jnp.sum(big_list >= 0).reshape(1, 1).astype(jnp.int32)
-    # (1, B, 16): mirrors the per-tile data block's proven TPU layout
-    # (2D blocks with a 16-lane minor dim are not a shape the Mosaic
-    # lowering has been exercised with here)
-    return big_data[None], bigcnt
+    big_list = _pad_slots(big_list)
+    big_data = records[_safe_ids(big_list, t_count)]
+    pos = jnp.arange(1, big_list.shape[0] + 1, dtype=jnp.int32)
+    big_n = jnp.max(jnp.where(big_list >= 0, pos, 0)).reshape(1)
+    return big_data, big_n.astype(jnp.int32)
+
+
+def _block_coords(tiles_x: int, sub_y: int, sub_x: int, bh: int, bw: int):
+    """(bin tile index, px, py) of this program's (bh, bw) sub-block."""
+    gy = pl.program_id(0)
+    gx = pl.program_id(1)
+    tile_idx = jax.lax.div(gy, sub_y) * tiles_x + jax.lax.div(gx, sub_x)
+    row = jax.lax.broadcasted_iota(jnp.int32, (bh, bw), 0)
+    col = jax.lax.broadcasted_iota(jnp.int32, (bh, bw), 1)
+    px = (gx * bw + col).astype(jnp.float32) + 0.5
+    py = (gy * bh + row).astype(jnp.float32) + 0.5
+    return tile_idx, px, py
+
+
+def _walk(load, n, hit, carry):
+    """Fold `hit` over the first ceil(n / TRI_STEP) * TRI_STEP slots."""
+    def body(g, carry):
+        for u in range(TRI_STEP):
+            carry = hit(carry, load(g * TRI_STEP + u))
+        return carry
+
+    groups = jax.lax.div(n + (TRI_STEP - 1), TRI_STEP)
+    return jax.lax.fori_loop(0, groups, body, carry)
+
+
+def _edges(d, px, py):
+    """Edge values and screen barycentrics of record `d` (16 scalars) at
+    the block's pixel centres."""
+    e0 = d[0] * px + d[3] * py + d[6]
+    e1 = d[1] * px + d[4] * py + d[7]
+    e2 = d[9] - e0 - e1                    # e0+e1+e2 = S (= -area)
+    b0 = e0 * d[13]
+    b1 = e1 * d[13]
+    z = d[10] + b0 * d[11] + b1 * d[12]
+    inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)
+    # padded/invalid slots hit the sentinel record: tri_id < 0
+    return inside & (z <= 1.0) & (d[14] >= 0.0), z, b0, b1
+
+
+def _vis_kernel(counts_ref, data_ref, big_n_ref, big_ref,
+                depth_ref, id_ref, b0_ref, b1_ref,
+                *, tiles_x: int, sub_y: int, sub_x: int, bh: int, bw: int):
+    """Visibility raster of one sub-block: nearest hit per pixel as
+    (reverse-Z depth, tri id, screen barycentrics b0/b1). The shared big
+    list draws first, then the tile's own list; a later slot replaces the
+    running hit only when strictly nearer, so ties keep the first slot."""
+    tile_idx, px, py = _block_coords(tiles_x, sub_y, sub_x, bh, bw)
+
+    def hit(carry, d):
+        depth, ids, b0s, b1s = carry
+        cand, z, b0, b1 = _edges(d, px, py)
+        keep = cand & (z > depth)
+        return (jnp.where(keep, z, depth),
+                jnp.where(keep, d[14].astype(jnp.int32), ids),
+                jnp.where(keep, b0, b0s), jnp.where(keep, b1, b1s))
+
+    zero = jnp.zeros((bh, bw), jnp.float32)
+    carry = (zero, jnp.full((bh, bw), -1, jnp.int32), zero, zero)
+    carry = _walk(lambda s: [big_ref[s, k] for k in range(15)],
+                  big_n_ref[0], hit, carry)
+    carry = _walk(lambda s: [data_ref[tile_idx, s, k] for k in range(15)],
+                  counts_ref[tile_idx], hit, carry)
+    depth_ref[...], id_ref[...], b0_ref[...], b1_ref[...] = carry
+
+
+def _depth_kernel(counts_ref, data_ref, bound_ref, big_n_ref, big_ref,
+                  depth_ref,
+                  *, tiles_x: int, sub_y: int, sub_x: int, bh: int, bw: int,
+                  atlas_bounds: tuple = ()):
+    """Depth-only raster of one sub-block (shadow cascades): the edge loop
+    of _vis_kernel with a plain max instead of the id/barycentric
+    tracking. The shared big list draws first, then the tile's own list.
+
+    EARLY-Z TERMINATION: `bound_ref[tile, g]` is the max reverse-Z depth
+    any record of the tile's list groups g.. can reach (a suffix max built
+    in rasterize_depth). Once every pixel of the sub-block is covered at
+    z >= that bound, no remaining caster can win the max and the loop
+    stops — bins ordered front-to-back from the light stop early."""
+    tile_idx, px, py = _block_coords(tiles_x, sub_y, sub_x, bh, bw)
+    n_rec = 16 if atlas_bounds else 15
+
+    def hit(depth, d):
+        cand, z, _, _ = _edges(d, px, py)
+        if atlas_bounds:
+            cand &= _in_rect(px, py, _atlas_rect(d[15], atlas_bounds))
+        return jnp.where(cand & (z > depth), z, depth)
+
+    depth = _walk(lambda s: [big_ref[s, k] for k in range(n_rec)],
+                  big_n_ref[0], hit, jnp.zeros((bh, bw), jnp.float32))
+    groups = jax.lax.div(counts_ref[tile_idx] + (TRI_STEP - 1), TRI_STEP)
+
+    def cond(carry):
+        g, done, _ = carry
+        return (g < groups) & jnp.logical_not(done)
+
+    def body(carry):
+        g, _, depth = carry
+        for u in range(TRI_STEP):
+            s = g * TRI_STEP + u
+            depth = hit(depth, [data_ref[tile_idx, s, k]
+                                for k in range(n_rec)])
+        done = jnp.min(depth) >= bound_ref[tile_idx, g + 1]
+        return g + 1, done, depth
+
+    _, _, depth = jax.lax.while_loop(
+        cond, body, (jnp.int32(0), jnp.bool_(False), depth))
+    depth_ref[...] = depth
+
+
+def _raster_call(kernel, name: str, inputs, out_dtypes, *, width: int,
+                 height: int, tile: int, th: int, **static):
+    """Launch `kernel` over the (bh, bw) sub-blocks of the tile grid.
+    Inputs are whole arrays the kernel indexes itself; outputs are
+    (h_pad, w_pad) planes cropped to (height, width)."""
+    tiles_x = -(-width // tile)
+    tiles_y = -(-height // th)
+    bh, bw = _block_shape(tile, th)
+    sub_y, sub_x = th // bh, tile // bw
+    out_spec = pl.BlockSpec((bh, bw), lambda gy, gx: (gy, gx))
+    outs = pl.pallas_call(
+        functools.partial(kernel, tiles_x=tiles_x, sub_y=sub_y, sub_x=sub_x,
+                          bh=bh, bw=bw, **static),
+        grid=(tiles_y * sub_y, tiles_x * sub_x),
+        in_specs=[pl.BlockSpec() for _ in inputs],
+        out_specs=tuple(out_spec for _ in out_dtypes),
+        out_shape=tuple(
+            jax.ShapeDtypeStruct((tiles_y * th, tiles_x * tile), dt)
+            for dt in out_dtypes),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=_NUM_WARPS,
+                                           num_stages=_NUM_STAGES),
+        interpret=_interpret(),
+        name=name,
+    )(*inputs)
+    return [o[:height, :width] for o in outs]
 
 
 def rasterize_visibility(
@@ -717,443 +759,165 @@ def rasterize_visibility(
     tile_h: int = None,
 ) -> Dict[str, Array]:
     """Visibility buffer: depth (H,W) reverse-Z, tri id (H,W), screen
-    barycentrics b0/b1 (H,W)."""
+    barycentrics b0/b1 (H,W). See _vis_kernel; the plain form is
+    rasterize_visibility_reference."""
     th = tile_h or tile
-    tiles_x = -(-width // tile)
-    tiles_y = -(-height // th)
-    n_tiles = tiles_x * tiles_y
-    if not _interpret() and not tpu_tile_legal(tile, width, height, th):
-        # Catch the illegal layout at trace time with a clear message
-        # instead of an XLA lowering error (shipped as a round-1 bug:
-        # entry() at tile_size=32 failed to lower on hardware).
-        raise ValueError(
-            f"rasterize_visibility: tile={tile}x{th} is not TPU-legal for a "
-            f"{height}x{width} frame ({tiles_y}x{tiles_x} tiles). Use "
-            f"tile_size=128 (or a single tile covering the whole frame)."
-        )
-    if tile_tris.shape[1] % TRI_BLOCK:
-        pad = TRI_BLOCK - tile_tris.shape[1] % TRI_BLOCK
-        tile_tris = jnp.pad(tile_tris, ((0, 0), (0, pad)), constant_values=-1)
-    c = tile_tris.shape[1]
-
-    # per-tile gathered triangle data (tiles, C, 16): 16-float edge records
-    # (_pack_edge_records) with the triangle id riding in the float record
-    # (exact for ids < 2^24) so the kernel needs no second indexed input.
-    # Records are packed densely FIRST so the per-tile fetch is ONE
-    # contiguous row gather (11 separate field gathers cost ~10x more: TPU
-    # random gathers pay per element, not per byte); empty slots hit the
-    # sentinel row, so no post-gather rewrite is needed.
+    _check_layout("rasterize_visibility", tile, th)
     records = _pack_edge_records(setup)                     # (T + 1, 16)
     t_count = records.shape[0] - 1
+    tile_tris = _pad_slots(_grid_slots(tile_tris, counts))
     data = records[_safe_ids(tile_tris, t_count)]           # (tiles, C, 16)
-    big_data, bigcnt = _big_inputs(records, big_list)
-
-    grid = (tiles_y, tiles_x)
-    out_block = pl.BlockSpec((th, tile), lambda ty, tx: (ty, tx),
-                             memory_space=pltpu.VMEM)
-    h_pad = tiles_y * th
-    w_pad = tiles_x * tile
-    # counts ride in SMEM as ONE full-array block (TPU blocks must be
-    # 8/128-aligned or whole-array); the kernel indexes by tile id.
-    # Layout (1, n_tiles): lane padding lands on the long axis — the
-    # (n_tiles, 1) orientation pads every row to 128 lanes and overflows
-    # SMEM past ~2K tiles (hit by short-wide tiles on the cascade atlas)
-    counts2d = counts.reshape(1, n_tiles)
-
-    depth, tri_id, b0, b1 = pl.pallas_call(
-        functools.partial(_raster_kernel, tile=tile, tiles_x=tiles_x,
-                          tile_h=th),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, n_tiles), lambda ty, tx: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), lambda ty, tx: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, c, 16), lambda ty, tx, _tx=tiles_x: (ty * _tx + tx, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, big_data.shape[1], 16),
-                         lambda ty, tx: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(out_block, out_block, out_block, out_block),
-        out_shape=(
-            jax.ShapeDtypeStruct((h_pad, w_pad), jnp.float32),
-            jax.ShapeDtypeStruct((h_pad, w_pad), jnp.int32),
-            jax.ShapeDtypeStruct((h_pad, w_pad), jnp.float32),
-            jax.ShapeDtypeStruct((h_pad, w_pad), jnp.float32),
-        ),
-        interpret=_interpret(),
-    )(counts2d, bigcnt, data, big_data)
-
-    return {
-        "depth": depth[:height, :width],
-        "tri_id": tri_id[:height, :width],
-        "b0": b0[:height, :width],
-        "b1": b1[:height, :width],
-    }
+    big_data, big_n = _big_inputs(records, big_list)
+    depth, tri_id, b0, b1 = _raster_call(
+        _vis_kernel, "raster_visibility",
+        (counts.astype(jnp.int32), data, big_n, big_data),
+        (jnp.float32, jnp.int32, jnp.float32, jnp.float32),
+        width=width, height=height, tile=tile, th=th)
+    return {"depth": depth, "tri_id": tri_id, "b0": b0, "b1": b1}
 
 
+def _early_z_bound(data: Array, tile_tris: Array) -> Array:
+    """(tiles, G + 1) early-z table for _depth_kernel: entry g is the max
+    reverse-Z any record of slot groups g.. can reach (zmax = z2 +
+    max(dz0, dz1, 0), record cols 10-12); the last column is -1."""
+    n_tiles, c = tile_tris.shape
+    rec_zmax = data[:, :, 10] + jnp.maximum(
+        jnp.maximum(data[:, :, 11], data[:, :, 12]), 0.0)
+    rec_zmax = jnp.where(tile_tris >= 0, rec_zmax, -1.0)
+    grp = rec_zmax.reshape(n_tiles, c // TRI_STEP, TRI_STEP).max(axis=2)
+    suffix = jnp.flip(jax.lax.cummax(jnp.flip(grp, 1), axis=1), 1)
+    return jnp.concatenate(
+        [suffix, jnp.full((n_tiles, 1), -1.0, jnp.float32)], axis=1)
 
 
-GBUF_CH = 24  # in-kernel G-buffer plane count (see _raster_shade_kernel)
-
-
-def _raster_shade_kernel(count_ref, data_ref, shade_ref, depth_ref, id_ref,
-                         b0_ref, b1_ref, attrs_ref, depth_s, id_s, b0_s,
-                         b1_s, slot_s,
-                         *, tile: int, tiles_x: int, rec: int, chunk: int,
-                         tile_h: int = None, gbuf: bool = False):
-    """Visibility raster + in-VMEM record shading.
-
-    Phase 1 (VPU): the tournament raster loop of `_raster_kernel`, extended
-    to track each pixel's winning slot in the tile's COMBINED list (big
-    prefix + grid entries — the caller folds the shared big list into each
-    tile's block, see rasterize_visibility_shaded). All running state lives
-    in FLAT (1, n_px) f32 scratch: Mosaic cannot reshape i1/i32 vectors
-    between (tile, tile) and (1, n_px), so the loop never leaves the flat
-    layout; outputs reshape f32 once at the end.
-
-    Phase 2 (MXU): per-pixel shading attributes materialize as ONE one-hot
-    contraction attrs[:, px] = recs @ onehot(slot[px]) while the combined
-    record block is still in VMEM. This replaces the per-pixel row gather
-    of the (T, rec) record table from HBM — the single most expensive op
-    of the round-2 frame (~2M random rows, ~14 ms at 1080p). Folding big
-    into the same contraction (instead of a second 128-slot-padded big
-    dot for ~33 real entries) halved phase 2's MXU work — the phase was
-    ~90% of the 3.6 ms kernel at 510 tiles x 2 chunks x 2 dots. The
-    one-hot is built in chunks of `chunk` pixels to bound VMEM.
-    """
-    th = tile_h or tile
-    ty = pl.program_id(0)
-    tx = pl.program_id(1)
-    tile_idx = ty * tiles_x + tx
-    n_px = th * tile
-    ixf = jax.lax.broadcasted_iota(jnp.int32, (1, n_px), 1)
-    col = (ixf % tile).astype(jnp.float32)
-    row = (ixf // tile).astype(jnp.float32)
-    px = (tx * tile + 0.5) + col            # (1, n_px)
-    py = (ty * th + 0.5) + row
-
-    depth_s[:] = jnp.zeros((1, n_px), jnp.float32)
-    id_s[:] = jnp.full((1, n_px), -1.0, jnp.float32)
-    b0_s[:] = jnp.zeros((1, n_px), jnp.float32)
-    b1_s[:] = jnp.zeros((1, n_px), jnp.float32)
-    slot_s[:] = jnp.full((1, n_px), -1.0, jnp.float32)
-
-    def process(d, slot0):
-        # edge-coefficient records (_pack_edge_records): e = a*px + b*py + c
-        e0 = d[:, 0:1] * px + d[:, 3:4] * py + d[:, 6:7]
-        e1 = d[:, 1:2] * px + d[:, 4:5] * py + d[:, 7:8]
-        e2 = d[:, 9:10] - e0 - e1            # e0+e1+e2 = S (= -area)
-        inv_area = d[:, 13:14]
-        tri_id = d[:, 14:15]
-        inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)
-        b0 = e0 * inv_area
-        b1 = e1 * inv_area
-        z = d[:, 10:11] + b0 * d[:, 11:12] + b1 * d[:, 12:13]
-        cand = inside & (z <= 1.0) & (z > 0.0) & (tri_id >= 0.0)
-        zc = jnp.where(cand, z, 0.0)
-
-        def merge(za, ia, ba, bb, sa, zb, ib, b2a, b2b, sb):
-            take_b = zb > za
-            return (jnp.where(take_b, zb, za), jnp.where(take_b, ib, ia),
-                    jnp.where(take_b, b2a, ba), jnp.where(take_b, b2b, bb),
-                    jnp.where(take_b, sb, sa))
-
-        zs = zc
-        ids = jnp.broadcast_to(tri_id, zc.shape)
-        b0s, b1s = b0, b1
-        slots = jnp.broadcast_to(slot0, zc.shape)
-        k = TRI_BLOCK
-        while k > 1:
-            h = k // 2
-            zs, ids, b0s, b1s, slots = merge(
-                zs[:h], ids[:h], b0s[:h], b1s[:h], slots[:h],
-                zs[h:k], ids[h:k], b0s[h:k], b1s[h:k], slots[h:k])
-            k = h
-
-        keep = zs > depth_s[:]               # (1, n_px), flat throughout
-        depth_s[:] = jnp.where(keep, zs, depth_s[:])
-        id_s[:] = jnp.where(keep, ids, id_s[:])
-        b0_s[:] = jnp.where(keep, b0s, b0_s[:])
-        b1_s[:] = jnp.where(keep, b1s, b1_s[:])
-        slot_s[:] = jnp.where(keep, slots, slot_s[:])
-
-    def slot_iota(cb, base):
-        return (base + cb * TRI_BLOCK + jax.lax.broadcasted_iota(
-            jnp.int32, (TRI_BLOCK, 1), 0)).astype(jnp.float32)
-
-    def body(cb, _):
-        process(data_ref[0, pl.ds(cb * TRI_BLOCK, TRI_BLOCK), :],
-                slot_iota(cb, 0))
-        return 0
-
-    n_blocks = (count_ref[0, tile_idx] + TRI_BLOCK - 1) // TRI_BLOCK
-    jax.lax.fori_loop(0, n_blocks, body, 0)
-
-    depth_ref[:] = depth_s[:].reshape(th, tile)
-    id_ref[:] = id_s[:].reshape(th, tile).astype(jnp.int32)
-    b0_ref[:] = b0_s[:].reshape(th, tile)
-    b1_ref[:] = b1_s[:].reshape(th, tile)
-
-    # phase 2: records -> per-pixel attrs by ONE one-hot matmul, chunked
-    c = shade_ref.shape[2]
-    rows_per_chunk = chunk // tile
-    recs = shade_ref[0]                               # (rec, C)
-    for ch in range(n_px // chunk):
-        sl = slot_s[0:1, pl.ds(ch * chunk, chunk)]    # (1, chunk) f32
-        iota_c = jax.lax.broadcasted_iota(
-            jnp.int32, (c, chunk), 0).astype(jnp.float32)
-        onehot = (iota_c == sl).astype(jnp.float32)   # (C, chunk)
-        part = jnp.dot(recs, onehot,
-                       preferred_element_type=jnp.float32)  # (rec, chunk)
-        if not gbuf:
-            attrs_ref[:, pl.ds(ch * rows_per_chunk, rows_per_chunk), :] = \
-                part.reshape(rec, rows_per_chunk, tile)
-            continue
-        # phase 3 (gbuf mode): finish the G-buffer IN-KERNEL while the
-        # record chunk is in registers. Materializing the raw 40-channel
-        # attrs at 1080p wrote a 334 MB f32 buffer that every downstream
-        # fusion re-read (>1.3 GB HBM traffic + a 1.2 ms layout-convert
-        # copy, round-5 HLO/trace). The interpolation needs only b0/b1
-        # (scratch) and the pixel coords (iota), so the raw record never
-        # leaves VMEM; the output is GBUF_CH finished planes:
-        #   [0:3 normal | 3:5 uv | 5:14 material (base3, metallic,
-        #    roughness, emissive3, reflectance) | 14 tex | 15 instance |
-        #    16:18 velocity | 18:24 pad]
-        # Record layout: gbuffer.pack_triangle_records.
-        b0c = b0_s[0:1, pl.ds(ch * chunk, chunk)]     # (1, chunk)
-        b1c = b1_s[0:1, pl.ds(ch * chunk, chunk)]
-        b2c = 1.0 - b0c - b1c
-        vis_m = id_s[0:1, pl.ds(ch * chunk, chunk)] >= 0.0
-        r = lambda i: part[i:i + 1]                   # (1, chunk)
-        # perspective-correct weights from the riding inv_w (slots 32:35)
-        w0 = b0c * r(32)
-        w1 = b1c * r(33)
-        w2 = b2c * r(34)
-        inv_s = 1.0 / jnp.maximum(w0 + w1 + w2, 1e-12)
-        w0 = w0 * inv_s
-        w1 = w1 * inv_s
-        w2 = w2 * inv_s
-        nx = r(0) * w0 + r(3) * w1 + r(6) * w2
-        ny = r(1) * w0 + r(4) * w1 + r(7) * w2
-        nz = r(2) * w0 + r(5) * w1 + r(8) * w2
-        inv_len = jax.lax.rsqrt(
-            jnp.maximum(nx * nx + ny * ny + nz * nz, 1e-12))
-        u = r(9) * w0 + r(11) * w1 + r(13) * w2
-        v = r(10) * w0 + r(12) * w1 + r(14) * w2
-        # velocity uses SCREEN barycentrics (prev positions are affine in
-        # screen space; see gbuffer.shade_gbuffer velocity notes)
-        pxc = px[0:1, ch * chunk:(ch + 1) * chunk]
-        pyc = py[0:1, ch * chunk:(ch + 1) * chunk]
-        vel_x = pxc - (r(26) * b0c + r(28) * b1c + r(30) * b2c)
-        vel_y = pyc - (r(27) * b0c + r(29) * b1c + r(31) * b2c)
-        zero = jnp.zeros_like(u)
-        g_out = jnp.concatenate([
-            nx * inv_len, ny * inv_len, nz * inv_len,
-            u, v,
-            part[15:24],
-            r(24), r(25),
-            jnp.where(vis_m, vel_x, 0.0), jnp.where(vis_m, vel_y, 0.0),
-            zero, zero, zero, zero, zero, zero,
-        ], axis=0)                                    # (GBUF_CH, chunk)
-        attrs_ref[:, pl.ds(ch * rows_per_chunk, rows_per_chunk), :] = \
-            g_out.reshape(GBUF_CH, rows_per_chunk, tile)
-
-
-def rasterize_visibility_shaded(
+def rasterize_depth(
     setup: Dict[str, Array],
-    shade_records: Array,   # (T, REC) per-triangle shading records
-    tile_tris: Array,       # (tiles, C)
-    counts: Array,          # (tiles,)
-    big_list: Array,        # (B,) shared big-triangle list
+    tile_tris: Array,
+    counts: Array,
+    big_list: Array,
     width: int,
     height: int,
     tile: int,
+    atlas_bounds: tuple = (),
+    tri_atlas: Array = None,
     tile_h: int = None,
-    gbuf: bool = False,
-) -> Tuple[Dict[str, Array], Array]:
-    """Fused visibility raster + record shading.
-
-    Returns (vis dict as rasterize_visibility, attrs (REC, H, W)) where
-    attrs[:, y, x] is the winning triangle's shading record at each pixel
-    (zeros where no triangle covers the pixel). See _raster_shade_kernel.
-
-    gbuf=True: phase 3 finishes the G-buffer in-kernel and attrs is the
-    (GBUF_CH, H, W) FINISHED plane block (normals normalized, uvs and
-    velocity interpolated — consume with gbuffer.shade_gbuffer(gplanes=))
-    instead of the raw record; the raw 40-channel per-pixel buffer
-    (334 MB at 1080p) never reaches HBM.
-
-    The shared big list FOLDS into each tile's block as a prefix (slots
-    [0, B)), so phase 2 runs ONE one-hot contraction over the combined
-    width instead of a second full-lane-padded big dot: size the binning
-    so B + grid cap stays a 128 multiple (the flagship uses 32 + 96)."""
+) -> Array:
+    """Depth-only raster (shadow maps: the CSM cascade passes,
+    csm.hpp:36-64) via _depth_kernel. `atlas_bounds` (per-cascade
+    (x0, x1, y0, y1) rects) + `tri_atlas` enable the cascade-atlas guard
+    (see _atlas_rect). The plain form is rasterize_depth_reference."""
     th = tile_h or tile
-    tiles_x = -(-width // tile)
-    tiles_y = -(-height // th)
-    n_tiles = tiles_x * tiles_y
-    if not _interpret() and not tpu_tile_legal(tile, width, height, th):
-        raise ValueError(
-            f"rasterize_visibility_shaded: tile={tile}x{th} is not TPU-legal "
-            f"for a {height}x{width} frame. Use tile_size=128."
-        )
-    # fold the shared big list in as a per-tile prefix
-    b_fold = big_list.shape[0]
-    big_tile = jnp.broadcast_to(big_list[None, :],
-                                (tile_tris.shape[0], b_fold))
-    tile_tris = jnp.concatenate([big_tile, tile_tris], axis=1)
-    # the scan covers the (possibly sentinel-holed) big prefix plus the
-    # tile's own entries; sentinel blocks rasterize nothing
-    counts = counts + b_fold
-    pad_to = 128  # lane alignment for the (REC, C) record block
-    if tile_tris.shape[1] % pad_to:
-        pad = pad_to - tile_tris.shape[1] % pad_to
-        tile_tris = jnp.pad(tile_tris, ((0, 0), (0, pad)), constant_values=-1)
-    c = tile_tris.shape[1]
-
-    records = _pack_edge_records(setup)                     # (T + 1, 16)
+    _check_layout("rasterize_depth", tile, th)
+    records = _pack_edge_records(setup, tri_atlas)
     t_count = records.shape[0] - 1
-    safe = _safe_ids(tile_tris, t_count)
-    data = records[safe]                                    # (tiles, C, 16)
-
-    rec_w = shade_records.shape[1]
-    rec_pad = (-rec_w) % 8                                  # sublane align
-    # sentinel shade row: zeros (empty pixels read record 0 of attrs)
-    srec = jnp.pad(shade_records, ((0, 1), (0, rec_pad)))
-    rec = srec.shape[1]
-    # per-tile shade records, pre-transposed to (REC, C) so the kernel's
-    # matmul needs no in-VMEM transpose; empty slots hit the zero sentinel
-    shade = srec[safe].transpose(0, 2, 1)                   # (tiles, REC, C)
-
-    grid = (tiles_y, tiles_x)
-    out_block = pl.BlockSpec((th, tile), lambda ty, tx: (ty, tx),
-                             memory_space=pltpu.VMEM)
-    h_pad = tiles_y * th
-    w_pad = tiles_x * tile
-    counts2d = counts.reshape(1, n_tiles)
-    n_px = th * tile
-    chunk = min(2048, n_px)
-    out_ch = GBUF_CH if gbuf else rec
-
-    depth, tri_id, b0, b1, attrs = pl.pallas_call(
-        functools.partial(_raster_shade_kernel, tile=tile, tiles_x=tiles_x,
-                          rec=rec, chunk=chunk, tile_h=th, gbuf=gbuf),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, n_tiles), lambda ty, tx: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, c, 16), lambda ty, tx, _tx=tiles_x: (ty * _tx + tx, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, rec, c), lambda ty, tx, _tx=tiles_x: (ty * _tx + tx, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(out_block, out_block, out_block, out_block,
-                   pl.BlockSpec((out_ch, th, tile),
-                                lambda ty, tx: (0, ty, tx),
-                                memory_space=pltpu.VMEM)),
-        out_shape=(
-            jax.ShapeDtypeStruct((h_pad, w_pad), jnp.float32),
-            jax.ShapeDtypeStruct((h_pad, w_pad), jnp.int32),
-            jax.ShapeDtypeStruct((h_pad, w_pad), jnp.float32),
-            jax.ShapeDtypeStruct((h_pad, w_pad), jnp.float32),
-            jax.ShapeDtypeStruct((out_ch, h_pad, w_pad), jnp.float32),
-        ),
-        scratch_shapes=[pltpu.VMEM((1, n_px), jnp.float32)
-                        for _ in range(5)],
-        interpret=_interpret(),
-    )(counts2d, data, shade)
-
-    vis = {
-        "depth": depth[:height, :width],
-        "tri_id": tri_id[:height, :width],
-        "b0": b0[:height, :width],
-        "b1": b1[:height, :width],
-    }
-    return vis, attrs[:(18 if gbuf else rec_w), :height, :width]
+    tile_tris = _pad_slots(_grid_slots(tile_tris, counts))
+    data = records[_safe_ids(tile_tris, t_count)]
+    big_data, big_n = _big_inputs(records, big_list)
+    (depth,) = _raster_call(
+        _depth_kernel, "raster_depth",
+        (counts.astype(jnp.int32), data, _early_z_bound(data, tile_tris),
+         big_n, big_data),
+        (jnp.float32,),
+        width=width, height=height, tile=tile, th=th,
+        atlas_bounds=tuple(atlas_bounds))
+    return depth
 
 
-def _blend_kernel(count_ref, bigcnt_ref, data_ref, big_ref, depth_ref,
-                  r_ref, g_ref, b_ref,
-                  ro_ref, go_ref, bo_ref, *, tile: int, tiles_x: int,
-                  atlas_bounds: tuple = (), tile_h: int = None):
-    """Ordered alpha-blend raster: triangles composite src-over IN BIN ORDER
-    (big list first, then back-to-front when binned with a depth priority —
-    the reference's sorted-translucent pass, mesh.hpp:204). Z-tested against
-    the opaque depth plane (reverse-Z: pass when z >= opaque)."""
-    ty = pl.program_id(0)
-    tx = pl.program_id(1)
+# -- plain references ----------------------------------------------------------
+#
+# Written apart from the kernels: for each tile, every slot of its list
+# (big list first) is evaluated in order over the tile's pixels, with no
+# early exit, as one (slots, pixels) array per tile. lax.map bounds the
+# live set to `batch` tiles.
+
+def _reference_tiles(setup, tile_tris, counts, big_list, width, height,
+                     tile, th, tri_atlas=None):
+    records = _pack_edge_records(setup, tri_atlas)
+    data = _slot_records(records, tile_tris, counts, big_list)
+    px, py = tiled_pixel_centres(width, height, tile, th)
+    return data, px, py
+
+
+def _reference_edges(d, px, py):
+    """Per-(slot, pixel) candidate mask, depth and barycentrics."""
+    col = lambda k: d[:, k:k + 1]                       # (S, 1)
+    e0 = col(0) * px[None, :] + col(3) * py[None, :] + col(6)
+    e1 = col(1) * px[None, :] + col(4) * py[None, :] + col(7)
+    e2 = col(9) - e0 - e1
+    b0 = e0 * col(13)
+    b1 = e1 * col(13)
+    z = col(10) + b0 * col(11) + b1 * col(12)
+    cand = ((e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (z <= 1.0) & (z > 0.0)
+            & (col(14) >= 0.0))
+    return cand, z, b0, b1
+
+
+def rasterize_visibility_reference(
+    setup: Dict[str, Array], tile_tris: Array, counts: Array,
+    big_list: Array, width: int, height: int, tile: int,
+    tile_h: int = None, batch: int = 32,
+) -> Dict[str, Array]:
+    """Plain-XLA twin of rasterize_visibility. The winner at a pixel is
+    the FIRST slot holding the nearest candidate depth. Also returns
+    `margin`: the winner's depth minus the nearest depth of any other
+    slot (0 where uncovered), which says where the winner is unambiguous."""
     th = tile_h or tile
-    tile_idx = ty * tiles_x + tx
-    n_px = th * tile
-    ixf = jax.lax.broadcasted_iota(jnp.int32, (1, n_px), 1)
-    col = (ixf % tile).astype(jnp.float32)
-    row = (ixf // tile).astype(jnp.float32)
-    px = (tx * tile + 0.5) + col
-    py = (ty * th + 0.5) + row
+    data, px, py = _reference_tiles(setup, tile_tris, counts, big_list,
+                                    width, height, tile, th)
 
-    ro_ref[:] = r_ref[:]
-    go_ref[:] = g_ref[:]
-    bo_ref[:] = b_ref[:]
-    opaque_z = depth_ref[:].reshape(1, n_px)
+    def one_tile(args):
+        d, x, y = args
+        cand, z, b0, b1 = _reference_edges(d, x, y)
+        zc = jnp.where(cand, z, 0.0)
+        win = jnp.argmax(zc, axis=0)                     # first max
+        best = jnp.max(zc, axis=0)
+        covered = best > 0.0
+        pick = lambda a: jnp.take_along_axis(a, win[None, :], axis=0)[0]
+        others = jnp.where(
+            jnp.arange(d.shape[0])[:, None] == win[None, :], 0.0, zc)
+        return (jnp.where(covered, best, 0.0),
+                jnp.where(covered, d[win, 14].astype(jnp.int32), -1),
+                jnp.where(covered, pick(b0), 0.0),
+                jnp.where(covered, pick(b1), 0.0),
+                jnp.where(covered, best - jnp.max(others, axis=0), 0.0))
 
-    def process(d):
-        # sequential within the block: order matters for blending
-        for k in range(TRI_BLOCK):
-            x0 = d[k, 0]
-            y0 = d[k, 1]
-            x1 = d[k, 2]
-            y1 = d[k, 3]
-            x2 = d[k, 4]
-            y2 = d[k, 5]
-            z0 = d[k, 6]
-            z1 = d[k, 7]
-            z2 = d[k, 8]
-            inv_area = d[k, 9]
-            tri_id = d[k, 10]
-            cr = d[k, 11]
-            cg = d[k, 12]
-            cb_ = d[k, 13]
-            ca = d[k, 14]
-            e0 = (px - x1) * (y2 - y1) - (py - y1) * (x2 - x1)
-            e1 = (px - x2) * (y0 - y2) - (py - y2) * (x0 - x2)
-            e2 = (px - x0) * (y1 - y0) - (py - y0) * (x1 - x0)
-            inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)
-            b0 = e0 * inv_area
-            b1 = e1 * inv_area
-            z = b0 * z0 + b1 * z1 + (1.0 - b0 - b1) * z2
-            hit = inside & (z >= opaque_z) & (z <= 1.0) & (tri_id >= 0.0)
-            if atlas_bounds:
-                ci = d[k, 15]
-                x0a = jnp.float32(0.0)
-                x1a = jnp.float32(0.0)
-                y0a = jnp.float32(0.0)
-                y1a = jnp.float32(0.0)
-                for i, (x0b, x1b, y0b, y1b) in enumerate(atlas_bounds):
-                    m = ci == float(i)
-                    x0a = jnp.where(m, float(x0b), x0a)
-                    x1a = jnp.where(m, float(x1b), x1a)
-                    y0a = jnp.where(m, float(y0b), y0a)
-                    y1a = jnp.where(m, float(y1b), y1a)
-                hit &= (px >= x0a) & (px < x1a) & (py >= y0a) & (py < y1a)
-            a = jnp.where(hit, ca, 0.0).reshape(th, tile)
-            ro_ref[:] = ro_ref[:] * (1.0 - a) + cr * a
-            go_ref[:] = go_ref[:] * (1.0 - a) + cg * a
-            bo_ref[:] = bo_ref[:] * (1.0 - a) + cb_ * a
+    outs = jax.lax.map(one_tile, (data, px, py), batch_size=batch)
+    img = lambda a: tiles_to_image(a, width, height, tile, th)
+    depth, tri_id, b0, b1, margin = map(img, outs)
+    return {"depth": depth, "tri_id": tri_id, "b0": b0, "b1": b1,
+            "margin": margin}
 
-    def body_big(cb, _):
-        process(big_ref[0, pl.ds(cb * TRI_BLOCK, TRI_BLOCK), :])
-        return 0
 
-    def body(cb, _):
-        process(data_ref[0, pl.ds(cb * TRI_BLOCK, TRI_BLOCK), :])
-        return 0
+def rasterize_depth_reference(
+    setup: Dict[str, Array], tile_tris: Array, counts: Array,
+    big_list: Array, width: int, height: int, tile: int,
+    atlas_bounds: tuple = (), tri_atlas: Array = None, tile_h: int = None,
+    batch: int = 32,
+) -> Array:
+    """Plain-XLA twin of rasterize_depth: the max candidate depth over
+    every slot of each tile's list."""
+    th = tile_h or tile
+    data, px, py = _reference_tiles(setup, tile_tris, counts, big_list,
+                                    width, height, tile, th, tri_atlas)
+    rects = (jnp.asarray(atlas_bounds, jnp.float32) if atlas_bounds
+             else None)
 
-    nb_big = (bigcnt_ref[0, 0] + TRI_BLOCK - 1) // TRI_BLOCK
-    jax.lax.fori_loop(0, nb_big, body_big, 0)
-    n_blocks = (count_ref[0, tile_idx] + TRI_BLOCK - 1) // TRI_BLOCK
-    jax.lax.fori_loop(0, n_blocks, body, 0)
+    def one_tile(args):
+        d, x, y = args
+        cand, z, _, _ = _reference_edges(d, x, y)
+        if rects is not None:
+            ci = d[:, 15].astype(jnp.int32)
+            known = (ci >= 0) & (ci < rects.shape[0])
+            r = jnp.where(known[:, None], rects[jnp.clip(ci, 0, rects.shape[0] - 1)], 0.0)
+            cand &= ((x[None, :] >= r[:, 0:1]) & (x[None, :] < r[:, 1:2])
+                     & (y[None, :] >= r[:, 2:3]) & (y[None, :] < r[:, 3:4]))
+        return jnp.max(jnp.where(cand, z, 0.0), axis=0)
 
+    depth = jax.lax.map(one_tile, (data, px, py), batch_size=batch)
+    return tiles_to_image(depth, width, height, tile, th)
+
+
+# -- ordered blend (plain XLA) -----------------------------------------------
 
 def rasterize_sorted_blend(
     setup: Dict[str, Array],
@@ -1171,20 +935,14 @@ def rasterize_sorted_blend(
     tile_h: int = None,
 ) -> Array:
     """Alpha-blend binned triangles over the HDR in bin order (sorted
-    translucent path — the Translucent render type, mesh.hpp:30-40).
+    translucent path — the Translucent render type, mesh.hpp:30-40):
+    triangles composite src-over in slot order (big list first, then
+    back-to-front when binned with a depth priority, mesh.hpp:204),
+    z-tested against the opaque depth plane (reverse-Z: pass when
+    z >= opaque). The ordered blend is a scan, so this is a loop over
+    slots with every tile's pixels in one array.
     atlas_bounds: per-cascade (x0, x1, y0, y1) pixel rects."""
     th = tile_h or tile
-    tiles_x = -(-width // tile)
-    tiles_y = -(-height // th)
-    n_tiles = tiles_x * tiles_y
-    if not _interpret() and not tpu_tile_legal(tile, width, height, th):
-        raise ValueError(
-            f"rasterize_sorted_blend: tile={tile}x{th} not TPU-legal")
-    if tile_tris.shape[1] % TRI_BLOCK:
-        pad = TRI_BLOCK - tile_tris.shape[1] % TRI_BLOCK
-        tile_tris = jnp.pad(tile_tris, ((0, 0), (0, pad)), constant_values=-1)
-    c = tile_tris.shape[1]
-
     t_count = setup["valid"].shape[0]
     sx, sy, z = setup["sx"], setup["sy"], setup["z"]      # (3, T)
     xy = jnp.stack([sx[0], sy[0], sx[1], sy[1], sx[2], sy[2]], axis=-1)
@@ -1203,415 +961,30 @@ def rasterize_sorted_blend(
     records = jnp.concatenate(
         [records, jnp.zeros((1, 16), jnp.float32).at[0, 10].set(-1.0)],
         axis=0)
-    data = records[_safe_ids(tile_tris, t_count)]
-    big_data, bigcnt = _big_inputs(records, big_list)
+    data = _slot_records(records, tile_tris, counts, big_list)
+    px, py = tiled_pixel_centres(width, height, tile, th)
+    opaque_z = image_to_tiles(opaque_depth, tile, th)        # (tiles, P)
+    rgb = image_to_tiles(hdr, tile, th)                      # (tiles, P, 3)
 
-    grid = (tiles_y, tiles_x)
-    blk = pl.BlockSpec((th, tile), lambda ty, tx: (ty, tx),
-                       memory_space=pltpu.VMEM)
-    h_pad = tiles_y * th
-    w_pad = tiles_x * tile
-    depth_p = jnp.pad(opaque_depth,
-                      ((0, h_pad - height), (0, w_pad - width)))
-    hdr_p = jnp.pad(hdr, ((0, h_pad - height), (0, w_pad - width), (0, 0)))
-    counts2d = counts.reshape(1, n_tiles)
-
-    r, g, b = pl.pallas_call(
-        functools.partial(_blend_kernel, tile=tile, tiles_x=tiles_x,
-                          atlas_bounds=atlas_bounds, tile_h=th),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, n_tiles), lambda ty, tx: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), lambda ty, tx: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, c, 16), lambda ty, tx, _tx=tiles_x: (ty * _tx + tx, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, big_data.shape[1], 16),
-                         lambda ty, tx: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            blk, blk, blk, blk,
-        ],
-        out_specs=(blk, blk, blk),
-        out_shape=(
-            jax.ShapeDtypeStruct((h_pad, w_pad), jnp.float32),
-            jax.ShapeDtypeStruct((h_pad, w_pad), jnp.float32),
-            jax.ShapeDtypeStruct((h_pad, w_pad), jnp.float32),
-        ),
-        interpret=_interpret(),
-    )(counts2d, bigcnt, data, big_data, depth_p,
-      hdr_p[..., 0], hdr_p[..., 1], hdr_p[..., 2])
-    return jnp.stack([r[:height, :width], g[:height, :width],
-                      b[:height, :width]], axis=-1)
-
-
-def _atlas_guard(d, px, py, atlas_bounds):
-    """Cascade-atlas clip: lane 15 of each record holds the triangle's
-    sub-rect index into the static `atlas_bounds` tuple of (x0, x1, y0, y1)
-    pixel rects; clipped geometry extending past its cascade's ortho bounds
-    must not bleed into a neighbor's atlas region. The per-rect bounds
-    materialize as a short select chain (C is 2-4)."""
-    idx = d[:, 15:16]
-    x0a = jnp.zeros_like(idx)
-    x1a = jnp.zeros_like(idx)
-    y0a = jnp.zeros_like(idx)
-    y1a = jnp.zeros_like(idx)
-    for ci, (x0, x1, y0, y1) in enumerate(atlas_bounds):
-        m = idx == float(ci)
-        x0a = jnp.where(m, float(x0), x0a)
-        x1a = jnp.where(m, float(x1), x1a)
-        y0a = jnp.where(m, float(y0), y0a)
-        y1a = jnp.where(m, float(y1), y1a)
-    return (px >= x0a) & (px < x1a) & (py >= y0a) & (py < y1a)
-
-
-def _depth_kernel(count_ref, bigcnt_ref, bound_ref, data_ref, big_ref,
-                  depth_ref,
-                  *, tile: int, tiles_x: int, atlas_bounds: tuple = (),
-                  tile_h: int = None):
-    """Depth-only raster (shadow cascades): the edge-coefficient loop of
-    _raster_kernel with a plain max-reduce instead of the id/barycentric
-    tournament — ~40% less VPU work per (triangle, pixel), and shadow maps
-    are the most raster-saturated passes of the frame (3 cascades at
-    2048^2 over a dense caster pile). The shared big block draws first
-    (small, no termination), then the tile's grid list.
-
-    EARLY-Z TERMINATION: `bound_ref` (SMEM) holds, per (tile, block), the
-    max reverse-Z depth of ALL remaining grid record blocks (a suffix max
-    built in rasterize_depth). With bins depth-ordered front-to-back from
-    the light (bin_triangles priority=depth rank), once every pixel of the
-    tile is covered at z >= that bound, no remaining caster can win the
-    max-reduce and the loop stops — on a dense pile the occluded interior
-    is ~90% of the binned casters."""
-    th = tile_h or tile
-    ty = pl.program_id(0)
-    tx = pl.program_id(1)
-    tile_idx = ty * tiles_x + tx
-    n_px = th * tile
-    ixf = jax.lax.broadcasted_iota(jnp.int32, (1, n_px), 1)
-    col = (ixf % tile).astype(jnp.float32)
-    row = (ixf // tile).astype(jnp.float32)
-    px = (tx * tile + 0.5) + col
-    py = (ty * th + 0.5) + row
-
-    depth_ref[:] = jnp.zeros((th, tile), jnp.float32)
-
-    def process(d):
-        e0 = d[:, 0:1] * px + d[:, 3:4] * py + d[:, 6:7]
-        e1 = d[:, 1:2] * px + d[:, 4:5] * py + d[:, 7:8]
-        e2 = d[:, 9:10] - e0 - e1
-        inv_area = d[:, 13:14]
-        tri_id = d[:, 14:15]
+    def body(s, rgb):
+        d = jax.lax.dynamic_index_in_dim(data, s, axis=1, keepdims=False)
+        f = lambda k: d[:, k:k + 1]                          # (tiles, 1)
+        x0, y0, x1, y1, x2, y2 = (f(k) for k in range(6))
+        e0 = (px - x1) * (y2 - y1) - (py - y1) * (x2 - x1)
+        e1 = (px - x2) * (y0 - y2) - (py - y2) * (x0 - x2)
+        e2 = (px - x0) * (y1 - y0) - (py - y0) * (x1 - x0)
         inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)
-        z = (d[:, 10:11] + e0 * inv_area * d[:, 11:12]
-             + e1 * inv_area * d[:, 12:13])
-        cand = inside & (z <= 1.0) & (z > 0.0) & (tri_id >= 0.0)
+        b0 = e0 * f(9)
+        b1 = e1 * f(9)
+        zp = b0 * f(6) + b1 * f(7) + (1.0 - b0 - b1) * f(8)
+        hit = inside & (zp >= opaque_z) & (zp <= 1.0) & (f(10) >= 0.0)
         if atlas_bounds:
-            cand &= _atlas_guard(d, px, py, atlas_bounds)
-        zs = jnp.max(jnp.where(cand, z, 0.0), axis=0).reshape(th, tile)
-        depth_ref[:] = jnp.maximum(depth_ref[:], zs)
+            hit &= _in_rect(px, py, _atlas_rect(f(15), atlas_bounds))
+        a = jnp.where(hit, f(14), 0.0)[..., None]
+        return rgb * (1.0 - a) + d[:, None, 11:14] * a
 
-    def body_big(cb, _):
-        process(big_ref[0, pl.ds(cb * TRI_BLOCK, TRI_BLOCK), :])
-        return 0
-
-    nb_big = (bigcnt_ref[0, 0] + TRI_BLOCK - 1) // TRI_BLOCK
-    jax.lax.fori_loop(0, nb_big, body_big, 0)
-
-    n_blocks = (count_ref[0, tile_idx] + TRI_BLOCK - 1) // TRI_BLOCK
-
-    def cond(carry):
-        cb, done = carry
-        return (cb < n_blocks) & ~done
-
-    def body(carry):
-        cb, _ = carry
-        process(data_ref[0, pl.ds(cb * TRI_BLOCK, TRI_BLOCK), :])
-        done = jnp.min(depth_ref[:]) >= bound_ref[cb + 1, tile_idx]
-        return cb + 1, done
-
-    jax.lax.while_loop(cond, body, (jnp.int32(0), False))
-
-
-def _depth_super_kernel(cnt_ref, data_ref, depth_ref,
-                        *, tile: int, tiles_x: int, sup_x: int, sup_y: int,
-                        sups_x: int, atlas_bounds: tuple = (),
-                        tile_h: int = None):
-    """Dense pass 1 of the split depth raster: every tile draws ONLY its
-    super-tile's big block (bin_big_supertiles). The block arrives via a
-    static index map (super of (ty, tx)), so consecutive tiles in the same
-    super reuse the fetched block."""
-    th = tile_h or tile
-    ty = pl.program_id(0)
-    tx = pl.program_id(1)
-    sup = (ty // sup_y) * sups_x + (tx // sup_x)
-    n_px = th * tile
-    ixf = jax.lax.broadcasted_iota(jnp.int32, (1, n_px), 1)
-    col = (ixf % tile).astype(jnp.float32)
-    row = (ixf // tile).astype(jnp.float32)
-    px = (tx * tile + 0.5) + col
-    py = (ty * th + 0.5) + row
-
-    depth_ref[:] = jnp.zeros((th, tile), jnp.float32)
-
-    def process(d):
-        e0 = d[:, 0:1] * px + d[:, 3:4] * py + d[:, 6:7]
-        e1 = d[:, 1:2] * px + d[:, 4:5] * py + d[:, 7:8]
-        e2 = d[:, 9:10] - e0 - e1
-        inv_area = d[:, 13:14]
-        tri_id = d[:, 14:15]
-        inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)
-        z = (d[:, 10:11] + e0 * inv_area * d[:, 11:12]
-             + e1 * inv_area * d[:, 12:13])
-        cand = inside & (z <= 1.0) & (z > 0.0) & (tri_id >= 0.0)
-        if atlas_bounds:
-            cand &= _atlas_guard(d, px, py, atlas_bounds)
-        zs = jnp.max(jnp.where(cand, z, 0.0), axis=0).reshape(th, tile)
-        depth_ref[:] = jnp.maximum(depth_ref[:], zs)
-
-    def body(cb, _):
-        process(data_ref[0, pl.ds(cb * TRI_BLOCK, TRI_BLOCK), :])
-        return 0
-
-    nb = (cnt_ref[0, sup] + TRI_BLOCK - 1) // TRI_BLOCK
-    jax.lax.fori_loop(0, nb, body, 0)
-
-
-def _depth_grid_kernel(act_ref, cnt_ref, bound_ref, data_ref, prior_ref,
-                       depth_ref,
-                       *, tile: int, tiles_x: int, atlas_bounds: tuple = (),
-                       tile_h: int = None):
-    """Compacted pass 2 of the split depth raster: grid slot i handles
-    ACTIVE tile act_ref[i] only (scalar-prefetched ids drive the in/out
-    index maps), max-merging its binned grid list onto pass 1's output
-    (aliased in as prior_ref). Dummy tail slots (count 0) write the prior
-    block back unchanged. Early-z: bound_ref (SMEM) column i holds the
-    suffix max of remaining blocks' zmax (see rasterize_depth)."""
-    th = tile_h or tile
-    i = pl.program_id(0)
-    tid = act_ref[i]
-    ty = tid // tiles_x
-    tx = tid % tiles_x
-    n_px = th * tile
-    ixf = jax.lax.broadcasted_iota(jnp.int32, (1, n_px), 1)
-    col = (ixf % tile).astype(jnp.float32)
-    row = (ixf // tile).astype(jnp.float32)
-    px = (tx * tile + 0.5) + col
-    py = (ty * th + 0.5) + row
-
-    depth_ref[:] = prior_ref[:]
-
-    def process(d):
-        e0 = d[:, 0:1] * px + d[:, 3:4] * py + d[:, 6:7]
-        e1 = d[:, 1:2] * px + d[:, 4:5] * py + d[:, 7:8]
-        e2 = d[:, 9:10] - e0 - e1
-        inv_area = d[:, 13:14]
-        tri_id = d[:, 14:15]
-        inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)
-        z = (d[:, 10:11] + e0 * inv_area * d[:, 11:12]
-             + e1 * inv_area * d[:, 12:13])
-        cand = inside & (z <= 1.0) & (z > 0.0) & (tri_id >= 0.0)
-        if atlas_bounds:
-            cand &= _atlas_guard(d, px, py, atlas_bounds)
-        zs = jnp.max(jnp.where(cand, z, 0.0), axis=0).reshape(th, tile)
-        depth_ref[:] = jnp.maximum(depth_ref[:], zs)
-
-    n_blocks = (cnt_ref[i] + TRI_BLOCK - 1) // TRI_BLOCK
-
-    def cond(carry):
-        cb, done = carry
-        return (cb < n_blocks) & ~done
-
-    def body(carry):
-        cb, _ = carry
-        process(data_ref[0, pl.ds(cb * TRI_BLOCK, TRI_BLOCK), :])
-        done = jnp.min(depth_ref[:]) >= bound_ref[cb + 1, i]
-        return cb + 1, done
-
-    jax.lax.while_loop(cond, body, (jnp.int32(0), False))
-
-
-def rasterize_depth(
-    setup: Dict[str, Array],
-    tile_tris: Array,
-    counts: Array,
-    big_list: Array,
-    width: int,
-    height: int,
-    tile: int,
-    atlas_bounds: tuple = (),
-    tri_atlas: Array = None,
-    tile_h: int = None,
-    sup_bins: Tuple = None,
-    max_active: int = None,
-    act_ids: Array = None,
-) -> Array:
-    """Depth-only raster (shadow maps: the CSM cascade passes,
-    csm.hpp:36-64) via the reduced _depth_kernel. `atlas_bounds` (per-
-    cascade (x0, x1, y0, y1) rects) + `tri_atlas` enable the cascade-atlas
-    guard (see _atlas_guard).
-
-    sup_bins + max_active select the SPLIT path for sparse targets (the
-    cascade atlas: 252 of 3072 tiles occupied on the flagship): pass 1
-    draws per-super-tile big lists (bin_big_supertiles) densely; pass 2
-    draws the per-tile grid lists over a compacted 1D grid of the
-    max_active most-populated tiles (scalar-prefetched tile ids), so the
-    (tiles, C, 16) record fetch — 6.1 ms/frame on the dense-pile atlas —
-    shrinks to (max_active, C, 16). Tiles beyond max_active lose their
-    grid list (the least-populated ones), same drop semantics as per-tile
-    cap overflow."""
-    th = tile_h or tile
-    tiles_x = -(-width // tile)
-    tiles_y = -(-height // th)
-    n_tiles = tiles_x * tiles_y
-    if not _interpret() and not tpu_tile_legal(tile, width, height, th):
-        raise ValueError(
-            f"rasterize_depth: tile={tile}x{th} is not TPU-legal for a "
-            f"{height}x{width} target. Use tile_size=128.")
-    if tile_tris.shape[1] % TRI_BLOCK:
-        pad = TRI_BLOCK - tile_tris.shape[1] % TRI_BLOCK
-        tile_tris = jnp.pad(tile_tris, ((0, 0), (0, pad)), constant_values=-1)
-    c = tile_tris.shape[1]
-    records = _pack_edge_records(setup, tri_atlas)
-    t_count = records.shape[0] - 1
-    if sup_bins is not None:
-        return _rasterize_depth_split(
-            records, tile_tris, counts, sup_bins,
-            width, height, tile, th, atlas_bounds,
-            max_active or max(n_tiles // 4, 1), act_ids)
-    data = records[_safe_ids(tile_tris, t_count)]
-    big_data, bigcnt = _big_inputs(records, big_list)
-    counts2d = counts.reshape(1, n_tiles)
-    # early-z bound table: per (tile, block) suffix max of record zmax
-    # (zmax = z2 + max(dz0, dz1, 0), cols 10-12), so the kernel can stop
-    # once the tile is covered closer to the light than everything left
-    nb = c // TRI_BLOCK
-    rec_zmax = data[:, :, 10] + jnp.maximum(
-        jnp.maximum(data[:, :, 11], data[:, :, 12]), 0.0)
-    rec_zmax = jnp.where(tile_tris >= 0, rec_zmax, -1.0)
-    blk_zmax = rec_zmax.reshape(n_tiles, nb, TRI_BLOCK).max(axis=2)
-    suffix = jnp.flip(jax.lax.cummax(jnp.flip(blk_zmax, 1), axis=1), 1)
-    bound = jnp.concatenate(
-        [suffix, jnp.full((n_tiles, 1), -1.0, jnp.float32)], axis=1).T
-    h_pad = tiles_y * th
-    w_pad = tiles_x * tile
-    depth = pl.pallas_call(
-        functools.partial(_depth_kernel, tile=tile, tiles_x=tiles_x,
-                          atlas_bounds=atlas_bounds, tile_h=th),
-        grid=(tiles_y, tiles_x),
-        in_specs=[
-            pl.BlockSpec((1, n_tiles), lambda ty, tx: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), lambda ty, tx: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((nb + 1, n_tiles), lambda ty, tx: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, c, 16),
-                         lambda ty, tx, _tx=tiles_x: (ty * _tx + tx, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, big_data.shape[1], 16),
-                         lambda ty, tx: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((th, tile), lambda ty, tx: (ty, tx),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((h_pad, w_pad), jnp.float32),
-        interpret=_interpret(),
-    )(counts2d, bigcnt, bound, data, big_data)
-    return depth[:height, :width]
-
-
-def _rasterize_depth_split(records, tile_tris, counts, sup_bins,
-                           width, height, tile, th, atlas_bounds,
-                           max_active, act_ids=None):
-    """Two-pass depth raster for sparse targets (see rasterize_depth).
-    act_ids: tile_tris/counts are ALREADY compacted to the active set
-    (bin_triangles max_active=...) — skip the internal compaction."""
-    sup_tris, sup_counts, (sup_x, sup_y, sups_x) = sup_bins
-    tiles_x = -(-width // tile)
-    tiles_y = -(-height // th)
-    n_tiles = tiles_x * tiles_y
-    n_sup = sup_counts.shape[0]
-    t_count = records.shape[0] - 1
-    c = tile_tris.shape[1]
-    h_pad = tiles_y * th
-    w_pad = tiles_x * tile
-
-    # pass 1: per-super-tile big lists, dense grid (consecutive tiles in a
-    # super reuse the fetched block)
-    st = sup_tris
-    if st.shape[1] % TRI_BLOCK:
-        st = jnp.pad(st, ((0, 0), (0, TRI_BLOCK - st.shape[1] % TRI_BLOCK)),
-                     constant_values=-1)
-    capb = st.shape[1]
-    sup_data = records[_safe_ids(st, t_count)]            # (n_sup, capB, 16)
-    supcnt = sup_counts.reshape(1, n_sup)
-    prior = pl.pallas_call(
-        functools.partial(_depth_super_kernel, tile=tile, tiles_x=tiles_x,
-                          sup_x=sup_x, sup_y=sup_y, sups_x=sups_x,
-                          atlas_bounds=atlas_bounds, tile_h=th),
-        grid=(tiles_y, tiles_x),
-        in_specs=[
-            pl.BlockSpec((1, n_sup), lambda ty, tx: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, capb, 16),
-                         lambda ty, tx, _sx=sup_x, _sy=sup_y, _nx=sups_x:
-                         ((ty // _sy) * _nx + tx // _sx, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((th, tile), lambda ty, tx: (ty, tx),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((h_pad, w_pad), jnp.float32),
-        interpret=_interpret(),
-    )(supcnt, sup_data)
-
-    # pass 2: compacted grid lists over the max_active most-populated tiles
-    if act_ids is None:
-        a = min(max_active, n_tiles)
-        _, act_ids = jax.lax.top_k(counts, a)
-        act_ids = act_ids.astype(jnp.int32)
-        act_cnt = counts[act_ids].astype(jnp.int32)
-        tt_c = tile_tris[act_ids]                         # (A, C) small
-    else:
-        a = act_ids.shape[0]
-        act_cnt = counts.astype(jnp.int32)
-        tt_c = tile_tris
-    data_c = records[_safe_ids(tt_c, t_count)]            # (A, C, 16)
-    nb = c // TRI_BLOCK
-    rec_zmax = data_c[:, :, 10] + jnp.maximum(
-        jnp.maximum(data_c[:, :, 11], data_c[:, :, 12]), 0.0)
-    rec_zmax = jnp.where(tt_c >= 0, rec_zmax, -1.0)
-    blk_zmax = rec_zmax.reshape(a, nb, TRI_BLOCK).max(axis=2)
-    suffix = jnp.flip(jax.lax.cummax(jnp.flip(blk_zmax, 1), axis=1), 1)
-    bound = jnp.concatenate(
-        [suffix, jnp.full((a, 1), -1.0, jnp.float32)], axis=1).T  # (nb+1, A)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,                   # act_ids, act_cnt
-        grid=(a,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),         # bound, full
-            pl.BlockSpec((1, c, 16), lambda i, act, cnt: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((th, tile),
-                         lambda i, act, cnt, _tx=tiles_x:
-                         (act[i] // _tx, act[i] % _tx),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((th, tile),
-                               lambda i, act, cnt, _tx=tiles_x:
-                               (act[i] // _tx, act[i] % _tx),
-                               memory_space=pltpu.VMEM),
-    )
-    depth = pl.pallas_call(
-        functools.partial(_depth_grid_kernel, tile=tile, tiles_x=tiles_x,
-                          atlas_bounds=atlas_bounds, tile_h=th),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((h_pad, w_pad), jnp.float32),
-        input_output_aliases={4: 0},
-        interpret=_interpret(),
-    )(act_ids, act_cnt, bound, data_c, prior)
-    return depth[:height, :width]
+    rgb = jax.lax.fori_loop(0, data.shape[1], body, rgb)
+    return tiles_to_image(rgb, width, height, tile, th)
 
 
 def render_pass(

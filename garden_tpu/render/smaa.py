@@ -6,13 +6,13 @@ smaa.hpp:37 + shaders/smaa/*, the Jimenez et al. 3-pass pipeline):
 2. blend-weight calculation from edge run lengths,
 3. neighborhood blending.
 
-TPU-first redesign notes:
+Data-parallel redesign notes:
 - The reference samples precomputed AreaTex/SearchTex textures. Those
   textures are themselves just tabulated analytic coverage of a
   revectorized edge line — here the coverage integral is evaluated
   directly in-code from the run lengths (no textures, no gathers).
 - Edge searches are fixed-radius (SEARCH_STEPS) cumulative products of
-  shifted edge masks — dense VPU work, no data-dependent loops.
+  shifted edge masks — dense elementwise work, no data-dependent loops.
 - Diagonal patterns (the reference's diag search + diag AreaTex section,
   shaders/smaa/*): handled analytically for the four corner orientations —
   a corner pixel whose same-oriented corner repeats at a diagonal

@@ -9,11 +9,11 @@ irradiance gathered in screen space from the PREVIOUS frame's lit HDR (the
 same temporal flow as render/ssr.py — bounced light lags one frame, which
 breaks the lighting<->GI cycle), feeding `lighting.resolve(gi=...)`.
 
-TPU-first formulation (vs a fragment-shader ray march): per-pixel jittered
+Data-parallel formulation (vs a fragment-shader ray march): per-pixel jittered
 rays are dynamic gathers (the slow generic-gather path, see hbao.py). The
 gather here is near-field and low-frequency, so every radiance tap uses a
 FIXED screen offset — one edge-padded shift of the (radiance, position,
-normal) planes (ops/shifts.py Shifter, pure dense VPU work). The only
+normal) planes (ops/shifts.py Shifter, pure dense elementwise work). The only
 random gather is ONE reprojection fetch of the previous HDR at the march
 resolution. The reference's GI blur chain becomes the depth-guided
 bilateral upsample (the same machinery as the shadow/AO resolves).

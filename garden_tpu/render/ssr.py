@@ -6,11 +6,11 @@ reflection/GI buffers; source/system/render/pbr-lighting.cpp:473-494 wires
 their blur chains; source/system/render/hiz.cpp:104-173 notes the Hi-Z
 pyramid exists for the SSR ray-march consumer).
 
-TPU-first design (vs the reference's per-pixel Hi-Z walk in a fragment
+Data-parallel design (vs the reference's per-pixel Hi-Z walk in a fragment
 shader): the march runs at REDUCED resolution with the step axis
 VECTORIZED — K dense (h, w) depth taps instead of a per-pixel variable-
 length walk, then one argmax picks each ray's first hit. Data-dependent
-per-pixel loops don't vectorize on the VPU; K dense gathers do. Hit color
+per-pixel loops don't vectorize; K dense gathers do. Hit color
 samples the PREVIOUS frame's HDR via reprojection (the standard temporal
 flow — reflections lag one frame, which also breaks the lighting<->SSR
 cycle), with IBL/sky specular as the fallback where rays miss or exit the
@@ -87,7 +87,7 @@ def trace(
            & (ray_z >= scene_z - cfg.thickness * z_scale))
 
     # first hit along the ray as a dense mask reduction — NO argmax +
-    # take_along_axis (lowers to a generic gather at ~5 GB/s; the same
+    # take_along_axis (lowers to a generic gather; the same
     # fix as fxaa._end_search, math3d.py one-hot notes)
     first_mask = (hit & (jnp.cumsum(hit.astype(jnp.float32), axis=0)
                          <= 1.0)).astype(jnp.float32)     # (K, h, w)

@@ -54,11 +54,10 @@ def luminance_histogram(hdr: Array, bins: int = 256) -> Array:
 
     Computed on an 8x-downsampled luminance plane (exposure metering is a
     trimmed MEAN over ~32K samples — statistically indistinguishable from
-    full res), binned DENSELY: a scatter-add histogram serializes on TPU
-    (measured 1.14 ms/frame at 1080p/4x with 0 GB/s utilization), and the
-    one-hot compare must stay small enough that its (P, bins) f32
-    materialization is cheap (the /4 one-hot measured 2.0 ms at 133 MB;
-    /8 is 33 MB ~ 0.1 ms)."""
+    full res), binned DENSELY: a scatter-add histogram collides on the
+    few busy bins, and the one-hot compare must stay small enough that its
+    (P, bins) f32 materialization is cheap (33 MB at 1080p/8, against
+    133 MB at /4)."""
     lum = m3.luminance(hdr)
     if lum.ndim == 2 and lum.shape[0] >= 16 and lum.shape[1] >= 16:
         h8, w8 = (lum.shape[0] // 8) * 8, (lum.shape[1] // 8) * 8

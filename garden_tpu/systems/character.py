@@ -3,7 +3,7 @@
 Rebuild of CharacterSystem/CharacterComponent (include/garden/system/
 character.hpp:50, source/system/character.cpp:265-272: a
 JPH::CharacterVirtual with ExtendedUpdate — stick-to-floor + walk-stairs).
-TPU formulation: the character is a capsule rigidbody with locked rotation
+Formulation: the character is a capsule rigidbody with locked rotation
 (angular_factor = 0, the AllowedDOF trick) driven by velocity control; the
 ground state comes from the body's contact normals each step (grounded =
 any supporting contact whose normal is within max_slope of up), which is

@@ -1,6 +1,6 @@
 """Transform hierarchy: position/rotation/scale with parent links.
 
-TPU-native rebuild of TransformSystem (reference:
+Data-parallel rebuild of TransformSystem (reference:
 include/garden/system/transform.hpp:455, source/system/transform.cpp). The
 reference stores a SIMD-packed TRS per entity plus parent/children pointers
 and walks the tree per query (`calcModel`, active-flag cascade
@@ -10,7 +10,7 @@ per-frame bake is one vectorized pointer-jumping pass:
     world[i] = world[parent[i]] @ world[i];  parent[i] = parent[parent[i]]
 
 which resolves any tree of depth <= 2^K in K iterations — no pointer chasing,
-no recursion, O(N log depth) total work on the VPU.
+no recursion, O(N log depth) total dense work.
 
 Marker components DoNotDestroy/DoNotDuplicate/DoNotSerialize
 (transform.hpp:513) are represented as boolean fields on the transform store.

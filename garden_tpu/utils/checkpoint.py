@@ -3,13 +3,13 @@
 Rebuild of the reference's checkpoint story (SURVEY.md section 5.4): scenes
 are the checkpoints (storeScene/loadScene serialize every component,
 resource.hpp:463-476), settings persist as JSON, and the pipeline cache
-persists compiled artifacts. TPU equivalents:
+persists compiled artifacts. Equivalents here:
 
 - `save`/`load`: the full engine state pytree as an .npz snapshot
   (exact-bitwise resume, including physics warm-start impulses).
 - scene JSON via garden_tpu.scene (human-readable interop, reference format).
 - compiled-function cache via jax's persistent compilation cache
-  (`enable_compilation_cache`).
+  (garden_tpu.utils.compile_cache).
 """
 
 from __future__ import annotations
@@ -71,13 +71,6 @@ def load(path: str, like: Any) -> Any:
             f"saved {diff[1]!r} vs requested {diff[2]!r}")
     restored = [jnp.asarray(data[f"leaf_{i}"]) for i in range(len(keys))]
     return jax.tree_util.tree_unflatten(treedef, restored)
-
-
-def enable_compilation_cache(cache_dir: str = ".jax_cache") -> None:
-    """Persistent compiled-program cache (the VulkanAPI pipeline-cache
-    analog, api.hpp:286 storePipelineCache)."""
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 def debug_guards(enable: bool = True) -> None:

@@ -2,7 +2,7 @@
 //
 // The reference ships assets in `pack` archives read by ResourceSystem in
 // release builds (include/garden/system/resource.hpp:28-30,183-185:
-// pack::Reader). This is the TPU engine's native equivalent: a C++ archive
+// pack::Reader). This is the engine's native equivalent: a C++ archive
 // writer/reader with zlib compression and an FNV-1a path index, exposed to
 // Python through a C ABI (ctypes — no pybind11 in the toolchain).
 //

@@ -130,7 +130,7 @@ def test_encoding_and_file_utils(tmp_path):
 
 
 def test_debug_view_observability(tmp_path):
-    """Editor-parity observability (VERDICT r3 #9): contact sheet, cascade
+    """Editor-parity observability: contact sheet, cascade
     atlas view, draw/contact counters, and the one-call debug sheet."""
     import numpy as np
 

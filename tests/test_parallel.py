@@ -43,7 +43,7 @@ def test_world_batch_over_8_devices():
     # per-world extraction works
     w0 = wb.world(batched, 0)
     assert w0["bodies"]["pos"].shape == (16, 3)
-    # metric reduction over ICI
+    # metric reduction over the mesh
     mean_y = wb.reduce(batched, lambda s: s["bodies"]["pos"][1, 1])
     assert abs(float(mean_y) - ys.mean()) < 1e-5
 

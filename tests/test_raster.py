@@ -87,27 +87,29 @@ def test_cube_scene_renders():
 
 
 def test_entry_config_tpu_tile_legality():
-    """Regression for the round-1 hardware bug: the driver entry() and every
-    quality preset must use TPU-legal raster tile layouts (non-full Pallas
-    output blocks need 128-lane alignment)."""
+    """The driver entry() and every quality preset must use raster tile
+    layouts that lower through Triton: power-of-two block dimensions, so
+    power-of-two tile widths and heights, main pass and shadow atlas."""
     from garden_tpu.core.config import QUALITY_PRESETS, RenderConfig
-    from garden_tpu.render.raster import tpu_tile_legal
+    from garden_tpu.render.raster import tile_layout_ok
 
     import sys
     sys.path.insert(0, ".")
     import __graft_entry__ as ge
-    import inspect
-    sig = inspect.signature(ge._build)
-    tile = sig.parameters["tile_size"].default
-    assert tpu_tile_legal(tile, 1920, 1080), "entry() tile layout illegal"
-    assert tpu_tile_legal(RenderConfig().tile_size, 1920, 1080)
-    # shadow maps raster at 128px tiles over map_size
+    # the flagship's render config (host-side build at a tiny body count)
+    cfg = ge._build_scene(n_bodies=8, width=1920, height=1080,
+                          grid_dim=8).renderer.config
+    assert tile_layout_ok(cfg.tile_size, cfg.tile_h), "entry() main tiles"
+    assert tile_layout_ok(128, cfg.shadow.atlas_tile_h), "entry() atlas"
+    assert tile_layout_ok(RenderConfig().tile_size, RenderConfig().tile_h)
     for name, over in QUALITY_PRESETS.items():
         cfg = RenderConfig(**over)
-        assert tpu_tile_legal(cfg.tile_size, cfg.width, cfg.height), name
-        assert tpu_tile_legal(128, cfg.shadow.map_size, cfg.shadow.map_size), name
-    # and the checker rejects the round-1 bug shape
-    assert not tpu_tile_legal(32, 128, 64)
+        assert tile_layout_ok(cfg.tile_size, cfg.tile_h), name
+        assert tile_layout_ok(128, cfg.shadow.atlas_tile_h), name
+    # and the checker rejects layouts Triton cannot block
+    assert not tile_layout_ok(96)
+    assert not tile_layout_ok(128, 24)
+    assert tile_layout_ok(128, 16)
 
 
 def test_overflow_drops_farthest_with_priority():
@@ -144,9 +146,9 @@ def test_overflow_drops_farthest_with_priority():
 
 
 def test_rectangular_tiles_match_square():
-    """tile_h (short-wide raster tiles, the TPU lane-economy shape) must be
-    pixel-exact vs the square-tile path across visibility, fused shade,
-    depth-only, and sorted-blend rasters on a multi-triangle scene."""
+    """tile_h (short-wide raster tiles) must be pixel-exact vs the
+    square-tile path across visibility, depth-only, and sorted-blend
+    rasters on a multi-triangle scene."""
     rng = np.random.default_rng(7)
     n = 40
     # random small CCW triangles in clip space, w=2, varied depth
@@ -174,14 +176,6 @@ def test_rectangular_tiles_match_square():
     for k in ("depth", "tri_id", "b0", "b1"):
         np.testing.assert_array_equal(np.asarray(sq[k]), np.asarray(rc[k]),
                                       err_msg=k)
-
-    recs = jnp.asarray(rng.uniform(0, 1, (n, 5)).astype(np.float32))
-    _, attrs_sq = raster.rasterize_visibility_shaded(
-        setup, recs, sq_tiles, sq_counts, sq_big, W, H, TILE)
-    _, attrs_rc = raster.rasterize_visibility_shaded(
-        setup, recs, rc_tiles, rc_counts, rc_big, W, H, TILE, tile_h=16)
-    np.testing.assert_allclose(np.asarray(attrs_sq), np.asarray(attrs_rc),
-                               atol=1e-6)
 
     d_sq = raster.rasterize_depth(setup, sq_tiles, sq_counts, sq_big,
                                   W, H, TILE)
@@ -234,77 +228,11 @@ def test_overflow_drops_farthest_with_bucket_priority():
     assert z[kept].min() >= z[dropped].max() - 0.0501, (kept[:3], dropped[-3:])
 
 
-def test_split_depth_matches_dense():
-    """The split depth-raster path (per-super-tile big lists +
-    compacted-active-tile grid pass, raster._rasterize_depth_split) must be
-    pixel-exact vs the dense path on a scene mixing small casters with big
-    (multi-super-tile) ones, including atlas-bounds clipping."""
-    rng = np.random.default_rng(11)
-    w, h, tile, th = 512, 256, 128, 16
-    n_small, n_big = 120, 6
-    # small triangles scattered across the left atlas rect only
-    cx = rng.uniform(5, 240, n_small).astype(np.float32)
-    cy = rng.uniform(5, 240, n_small).astype(np.float32)
-    sz = rng.uniform(4, 12, n_small).astype(np.float32)
-    # big triangles spanning several super-tiles
-    bx = rng.uniform(0, 200, n_big).astype(np.float32)
-    by = rng.uniform(0, 100, n_big).astype(np.float32)
-    bs = rng.uniform(120, 400, n_big).astype(np.float32)
-    px = np.concatenate([cx, bx])
-    py = np.concatenate([cy, by])
-    ps = np.concatenate([sz, bs])
-    t = n_small + n_big
-    z = rng.uniform(0.1, 0.9, t).astype(np.float32)
-    sx = np.stack([px, px + ps, px], 0)    # corner-major (3, T)
-    sy = np.stack([py, py, py + ps], 0)
-    setup = {
-        "sx": jnp.asarray(sx), "sy": jnp.asarray(sy),
-        "z": jnp.asarray(np.stack([z, z, z], 0)),
-        "inv_area": jnp.asarray(1.0 / (ps * ps)),
-        "xmin": jnp.asarray(sx.min(0)), "xmax": jnp.asarray(sx.max(0)),
-        "ymin": jnp.asarray(sy.min(0)), "ymax": jnp.asarray(sy.max(0)),
-        "valid": jnp.ones((t,), bool),
-    }
-    bounds = ((0, 256, 0, 256), (256, 512, 0, 256))
-    tri_atlas = jnp.asarray((np.arange(t) % 2).astype(np.int32))
-    tiles, counts, big = raster.bin_triangles(
-        setup, w, h, tile, 32, max_big=16, foot=2, tile_h=th, foot_y=2)
-    dense = raster.rasterize_depth(setup, tiles, counts, big, w, h, tile,
-                                   atlas_bounds=bounds, tri_atlas=tri_atlas,
-                                   tile_h=th)
-    sup = raster.bin_big_supertiles(setup, big, w, h, tile, th,
-                                    sup_x=2, sup_y=4, cap=16)
-    split = raster.rasterize_depth(setup, tiles, counts, big, w, h, tile,
-                                   atlas_bounds=bounds, tri_atlas=tri_atlas,
-                                   tile_h=th, sup_bins=sup,
-                                   max_active=tiles.shape[0])
-    np.testing.assert_array_equal(np.asarray(dense), np.asarray(split))
-    # compaction at less-than-full capacity still covers every occupied tile
-    # when it fits the actual occupancy
-    n_occ = int((np.asarray(counts) > 0).sum())
-    split2 = raster.rasterize_depth(setup, tiles, counts, big, w, h, tile,
-                                    atlas_bounds=bounds, tri_atlas=tri_atlas,
-                                    tile_h=th, sup_bins=sup,
-                                    max_active=n_occ + 1)
-    np.testing.assert_array_equal(np.asarray(dense), np.asarray(split2))
-    # pre-compacted binning (bin_triangles max_active=...) is the fused
-    # production path: lists, counts and act ids arrive already compacted
-    tiles_c, counts_c, big_c, act = raster.bin_triangles(
-        setup, w, h, tile, 32, max_big=16, foot=2, tile_h=th, foot_y=2,
-        max_active=n_occ + 1)
-    np.testing.assert_array_equal(np.asarray(big_c), np.asarray(big))
-    split3 = raster.rasterize_depth(setup, tiles_c, counts_c, big_c, w, h,
-                                    tile, atlas_bounds=bounds,
-                                    tri_atlas=tri_atlas, tile_h=th,
-                                    sup_bins=sup, act_ids=act)
-    np.testing.assert_array_equal(np.asarray(dense), np.asarray(split3))
-
-
 def test_corner_binning_matches_slot_binning_depth():
     """bin_triangles_corner (one sorted entry per caster + 4-run list
     assembly) must produce pixel-identical depth vs the slot-copy
-    bin_triangles on a mixed small/big scene — both dense and in the
-    compacted max_active form (the cascade-atlas production path)."""
+    bin_triangles on a mixed small/big scene, in the
+    cascade-atlas form (short-wide tiles, corner lists)."""
     rng = np.random.default_rng(23)
     w, h, tile, th = 512, 256, 128, 16
     n_small, n_big = 160, 5
@@ -345,72 +273,3 @@ def test_corner_binning_matches_slot_binning_depth():
     ts = np.sort(np.asarray(tiles), axis=1)
     cs = np.sort(np.asarray(ctiles), axis=1)
     np.testing.assert_array_equal(ts, cs)
-    # compacted form with the split raster (production cascade path)
-    n_occ = int((np.asarray(ccounts) > 0).sum())
-    ctiles2, ccounts2, cbig2, act = raster.bin_triangles_corner(
-        setup, w, h, tile, 64, max_big=16, tile_h=th, max_active=n_occ + 2)
-    sup = raster.bin_big_supertiles(setup, cbig2, w, h, tile, th,
-                                    sup_x=2, sup_y=4, cap=16)
-    split = raster.rasterize_depth(setup, ctiles2, ccounts2, cbig2, w, h,
-                                   tile, tile_h=th, sup_bins=sup,
-                                   act_ids=act)
-    np.testing.assert_array_equal(np.asarray(ref), np.asarray(split))
-
-
-def test_gbuf_kernel_matches_attrs_path():
-    """rasterize_visibility_shaded(gbuf=True) (in-kernel G-buffer finish)
-    must reproduce shade_gbuffer's interpolation from the raw attrs path:
-    normals, uvs, materials, velocity, within fp tolerance."""
-    from garden_tpu.render import gbuffer
-
-    rng = np.random.default_rng(5)
-    n = 30
-    base = rng.uniform(-0.9, 0.9, (n, 2)).astype(np.float32)
-    d1 = rng.uniform(0.05, 0.5, (n, 2)).astype(np.float32)
-    rot = np.stack([-d1[:, 1], d1[:, 0]], -1)
-    p0, p1, p2 = base, base + d1, base + rot
-    zz = rng.uniform(0.2, 1.6, (n, 1)).astype(np.float32)
-    verts = []
-    for p in (p0, p1, p2):
-        verts.append(np.concatenate(
-            [p * 2.0, zz, np.full((n, 1), 2.0, np.float32)], -1))
-    clip = jnp.asarray(np.stack(verts, 1).reshape(n * 3, 4))
-    idx = jnp.arange(n * 3, dtype=jnp.int32).reshape(n, 3)
-    valid = jnp.ones((n,), bool)
-
-    setup = raster.setup_triangles(clip, idx, valid, W, H)
-    tiles, counts, big = raster.bin_triangles(setup, W, H, TILE, 64)
-
-    # full-width records with realistic fields (normals, uvs, materials,
-    # prev-screen, inv_w) — layout per gbuffer.pack_triangle_records
-    rec = np.zeros((n, 36), np.float32)
-    nrm = rng.normal(size=(n, 3, 3)).astype(np.float32)
-    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
-    rec[:, 0:9] = nrm.reshape(n, 9)
-    rec[:, 9:15] = rng.uniform(0, 1, (n, 6))            # uvs
-    rec[:, 15:24] = rng.uniform(0, 1, (n, 9))           # material props
-    rec[:, 24] = -1.0                                   # untextured
-    rec[:, 25] = rng.integers(0, 7, n)                  # instance
-    rec[:, 26:32] = rng.uniform(0, 128, (n, 6))         # prev screen
-    rec[:, 32:35] = rng.uniform(0.4, 2.0, (n, 3))       # inv_w
-    recs = jnp.asarray(rec)
-
-    consts = {"inv_view_proj": jnp.eye(4)}
-    vis, attrs = raster.rasterize_visibility_shaded(
-        setup, recs, tiles, counts, big, W, H, TILE)
-    ref = gbuffer.shade_gbuffer(vis, setup, {}, None, None,
-                                constants=consts,
-                                attrs=attrs, with_velocity=True)
-    vis2, gplanes = raster.rasterize_visibility_shaded(
-        setup, recs, tiles, counts, big, W, H, TILE, gbuf=True)
-    out = gbuffer.shade_gbuffer(vis2, setup, {}, None, None,
-                                constants=consts,
-                                gplanes=gplanes, with_velocity=True)
-    np.testing.assert_array_equal(np.asarray(vis["tri_id"]),
-                                  np.asarray(vis2["tri_id"]))
-    for k in ("normal", "uv", "base_color", "metallic", "roughness",
-              "emissive", "reflectance", "velocity"):
-        np.testing.assert_allclose(np.asarray(ref[k]), np.asarray(out[k]),
-                                   atol=2e-5, err_msg=k)
-    np.testing.assert_array_equal(np.asarray(ref["instance"]),
-                                  np.asarray(out["instance"]))

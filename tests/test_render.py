@@ -480,7 +480,7 @@ def test_smaa_smooths_staircase():
 
 @pytest.mark.slow
 def test_render_scale_preset_similarity():
-    """The documented 60fps fallback (VERDICT r2 item 2c): rendering at
+    """The documented 60fps fallback: rendering at
     render_scale=0.5 and upsampling must stay close to the full-res frame
     (quantified: mean |diff| < 8/255 over the image, structure preserved)."""
     import jax.numpy as jnp
@@ -731,7 +731,7 @@ def test_smaa_diagonal_beats_fxaa_on_45deg_staircase():
     on a perfect 45-degree staircase the revectorized line x = y + 1/2
     covers the inside boundary pixel by 7/8 and the outside one by 1/8 —
     SMAA's diagonal handling must land measurably closer to that
-    analytically antialiased line than FXAA (VERDICT r4 item 6)."""
+    analytically antialiased line than FXAA."""
     from garden_tpu.render import fxaa, smaa
 
     n = 48
